@@ -31,11 +31,31 @@ Phases, in order; any failure exits non-zero:
      backward), then trains: a whole `Recommender.train()` epoch with its
      evaluation in the first phase (Recall@20 beside the untrained
      state's), 5 `Trainer` steps in the others; it reports the loss and
-     the step's wall time, device time and idle share.
+     the step's wall time, device time and idle share;
+  7. the gather-fusion probe path (`bench/gather_fusion.py`, the port of
+     scripts/bench_gather_fusion.py) at its shapes, launches counted:
+     kernels 5 and 6 (`resident_row_gather`, `fused_window_spmm`) in f32
+     and bf16 against their plain versions (the gather exactly, the fused
+     product within KERNEL_RTOL, and in f32 also against scipy's product),
+     with the device times of each kernel, its plain version, its library
+     call and kernel 1 on the same layout;
+  8. HGNN_HD3 at full width at the LastFM shape (its MODEL_DEFAULTS, mode
+     full, bf16 operand): the encode through the kernels against the plain
+     versions, one training step likewise (loss and every gradient), 24
+     SpMM launches an encode and 48 a step (8 and 16 forward products on
+     the CF adjacency and the rectangular b_hyper incidence, as many
+     backward), then 5 `Trainer` steps with the step's wall, device time
+     and idle share, and the layout `dedup_auto` picked for b_hyper;
+  9. every other HD variant and HGNN_HD3's local_only and group_only modes:
+     one encode and one `Trainer` step each, finite, launches asserted;
+ 10. cached propagation (prop_cache_steps 8) for 16 `Trainer` steps in
+     KHGRec (LastFM, auto) and HGNN_HD3: only steps 0 and 8 launch a
+     kernel; the mean cached step's time beside the full step's.
 
 The line before the last is the card's name and power limit; before it,
-one JSON line with a row per kernel (times per training step at the
-kernel's main-path shape). The last line is
+one JSON line with a row per kernel (kernels 1-4: times per training step
+at the kernel's main-path shape, launches per step; kernels 5-6: times per
+call at the probe's shapes, launches on the probe path). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Weights are random, drawn from a seeded generator. It imports nothing of
 JAX or of the JAX package, and exits non-zero without a CUDA card or
@@ -47,10 +67,10 @@ from __future__ import annotations
 import json
 import math
 import statistics
-import warnings
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -104,6 +124,37 @@ TRAIN_PHASES = (
     ("ml1m", "dedup_int8", "segment_spmm_dedup_int8"),
 )
 TRAIN_STEPS = 5  # Trainer steps in the phases without a whole epoch
+# bench.py's KHGRec training configuration (bench.py:181-196), bf16 gathered operand
+KHGREC_TRAIN = dict(hyper_dim=D, relation_dim=32, n_layers=2, batch_size=2048,
+                    batch_size_kg=8192, mode="full", drop_rate=0.2, p=0.3, temp=1.0,
+                    cl_rate=0.01, lrate=0.001, compute_dtype="bfloat16", eval_user_batch=512)
+SOURCES = ("segment_spmm", "gather_fusion")  # csrc/<name>.cu
+
+_PROBE_SRC = "scripts/bench_gather_fusion.py"
+PROBE_KERNELS = {
+    # name: (the TPU kernel, the probes (bench/gather_fusion.py) of the kernel
+    # in f32 and bf16, its plain version in f32, and the library call)
+    "resident_row_gather": (f"{_PROBE_SRC}:86", "3. resident_row_gather f32",
+                            "3b. resident_row_gather bf16", "3p. resident_row_gather plain f32",
+                            "1. index_select f32"),
+    "fused_window_spmm": (f"{_PROBE_SRC}:125", "4. fused_window_spmm f32",
+                          "4b. fused_window_spmm bf16", "4p. fused_window_spmm plain f32",
+                          "6. torch.sparse.mm"),
+}
+# HGNN_HD3's SpMM launches: 6 products on the CF adjacency in the local view
+# (the ED-HNN layer's two two-hop convs, the cap's one), 2 on it and 16 on
+# b_hyper in the group view (two HWNN layers of 4 two-hops each, the cap's
+# one), forward; a training step runs each again backward
+HD3_ENCODE_LAUNCHES = 24
+# the other variants (model, mode): SpMM launches of an encode, as the code
+# gives them; a step launches twice as many (each product again backward).
+# The scatter-form ED-HNN of HD and HGNN_HD2 launches none
+HD_VARIANTS = {
+    ("HD", "full"): 0, ("HGNN_HD", "full"): 8, ("HGNN_HD2", "full"): 2,
+    ("HGNN_HD4", "full"): 26, ("WaveletHD", "full"): 32, ("WaveletHD2", "full"): 18,
+    ("LocalEncoder", "full"): 6, ("HGNN_HD3", "local_only"): 6, ("HGNN_HD3", "group_only"): 18,
+}
+PROP_CACHE_STEPS, PROP_CACHE_RUN = 8, 16  # K, and the Trainer steps run with it
 
 
 def log(*a) -> None:
@@ -111,53 +162,21 @@ def log(*a) -> None:
 
 
 def cuda_ms(fn, iters: int = TIMED_ITERS, warmup: int = 3) -> float:
-    """Median time of one call of `fn` in ms between two CUDA events: the
-    device's time for the call plus any gap the host leaves while it
-    launches. The L2 stays warm, as in the encode, where X has just been
-    written."""
-    import torch
+    """Median time of one call of `fn` in ms between two CUDA events
+    (`bench/timing.py`). The L2 stays warm, as in the encode, where X has
+    just been written."""
+    from hypergraph_diffusion_for_recommendation_tpu_torch.bench.timing import cuda_ms as timed
 
-    for _ in range(warmup):
-        fn()
-    pairs = []
-    for _ in range(iters):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    return timed(fn, iters, warmup)
 
 
 def device_ms(fn, iters: int = TIMED_ITERS, attempts: int = 10) -> tuple[float, dict[str, float]]:
-    """Device time per call of `fn` in ms, summed over every kernel, copy
-    and fill it runs (torch.profiler's CUPTI trace, the mean of `iters`
-    calls after one warm call), and the same split by kernel name. Host
-    launch gaps are left out: `cuda_ms` keeps them. A trace that comes
-    back without device events (it happens now and then, two in a row
-    seen) is taken again after a pause; after `attempts` such traces the
-    phase fails, so that every device time the script reports has this
-    one definition."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Device time per call of `fn` in ms and its split by kernel name, from
+    torch.profiler's trace (`bench/timing.py`); an empty trace is taken
+    again, up to `attempts` times, and then the phase fails."""
+    from hypergraph_diffusion_for_recommendation_tpu_torch.bench.timing import device_ms as timed
 
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(1, attempts + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {e.key: e.self_device_time_total / iters / 1e3 for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
-        total = sum(by_name.values())
-        if total > 0:
-            return total, by_name
-        log(f"[timer] trace {attempt} of {attempts} recorded no device time")
-        time.sleep(0.2)
-    raise RuntimeError(f"torch.profiler recorded no device time in {attempts} traces")
+    return timed(fn, iters, attempts, log=log)
 
 
 def kernel_only_ms(by_name: dict[str, float]) -> float:
@@ -194,14 +213,22 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import build, segment_spmm
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import (
+        build,
+        gather_fusion,
+        segment_spmm,
+    )
 
     t0 = time.time()
+    build.build_libraries(SOURCES)  # one nvcc per source, started together
     segment_spmm._library()
-    log(f"[build] segment_spmm.cu built and loaded in {time.time() - t0:.2f} s")
-    for line in build.BUILD_LOGS.get("segment_spmm", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    gather_fusion._library()
+    log(f"[build] {', '.join(f'{n}.cu' for n in SOURCES)} built and loaded in "
+        f"{time.time() - t0:.2f} s")
+    for name in SOURCES:
+        for line in build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {name}: {line.strip()}")
 
 
 def make_graphs():
@@ -444,13 +471,8 @@ def phase_train(shape: str, data, gather_layout: str, kname: str, card: str,
     from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender, Trainer
 
     tag = f"{shape}/{gather_layout}"
-    # bench.py's training configuration (bench.py:181-196), bf16 gathered operand
-    cfg = make_config(
-        "KHGRec", hyper_dim=D, relation_dim=32, n_layers=2, batch_size=2048, batch_size_kg=8192,
-        mode="full", drop_rate=0.2, p=0.3, temp=1.0, cl_rate=0.01, lrate=0.001,
-        compute_dtype="bfloat16", gather_layout=gather_layout, eval_user_batch=512,
-        item_ranking=(10, 20, 40), max_epoch=1, early_stopping_steps=100,
-    )
+    cfg = make_config("KHGRec", **KHGREC_TRAIN, gather_layout=gather_layout,
+                      item_ranking=(10, 20, 40), max_epoch=1, early_stopping_steps=100)
     t0 = time.time()
     rec = Recommender(cfg, DEVICE)
     rec.build(data)
@@ -555,6 +577,319 @@ def phase_train(shape: str, data, gather_layout: str, kname: str, card: str,
     return summary
 
 
+def phase_probe() -> list[dict]:
+    """The gather-fusion probe path with its launches counted, then kernels
+    5 and 6 held against their plain versions and (the fused product, f32)
+    scipy's product; a JSON row per kernel, times per call in f32 mode."""
+    import numpy as np
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.bench import gather_fusion as P
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import gather_fusion as G
+
+    probe = P.make_probe(DEVICE)
+    # --- the probe path (its entry point's body), counted
+    for k in G.LAUNCHES:
+        G.LAUNCHES[k] = 0
+    res = P.run_probes(probe, log=lambda line: log(f"[probe] {line}"))
+    torch.cuda.synchronize()
+    launches = dict(G.LAUNCHES)
+    if not all(launches.values()):
+        raise AssertionError(f"the probe path launched {launches}: a kernel never ran")
+    ms = res["ms"]
+
+    # --- checks: both modes against the plain versions, the fused f32 product
+    # against scipy's f32 product
+    worst = dict.fromkeys(G.LAUNCHES, 0.0)
+    exact = torch.as_tensor(P.csr_matrix(probe) @ probe.x.cpu().numpy(), device=DEVICE)
+    for mode, table in (("f32", probe.x), ("bf16", probe.x.to(torch.bfloat16))):
+        got = G.resident_row_gather(table, probe.idx)
+        if not torch.equal(got, G.resident_row_gather_reference(table, probe.idx)):
+            raise AssertionError(f"resident_row_gather {mode} differs from its plain version")
+        blk = probe.blocked.replace(bf16=mode == "bf16")
+        got = G.fused_window_spmm(blk, probe.x)
+        torch.cuda.synchronize()
+        ref = G.fused_window_spmm_reference(blk, probe.x)
+        scale = max(float(ref.abs().max()), 1.0)
+        err = float((got - ref).abs().max())
+        ok = err <= KERNEL_RTOL * scale
+        err_exact = float((got - exact).abs().max())
+        if mode == "f32":
+            ok = ok and err_exact <= KERNEL_RTOL * scale
+        log(f"[probe] fused_window_spmm {mode}: max_abs_err {err:.3e} vs plain, {err_exact:.3e} "
+            f"vs scipy f32 (scale {scale:.3f}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fused_window_spmm {mode} disagrees")
+        worst["fused_window_spmm"] = max(worst["fused_window_spmm"], err)
+
+    # --- bounds from this run's inputs: each input read once, each output
+    # written once (X: the rows the indices reference), f32
+    n, d = probe.x.shape
+    nnz = probe.cols.numel()
+    x_bytes = 4 * d * np.unique(probe.cols.cpu().numpy()).shape[0]
+    gather_bytes = x_bytes + 4 * nnz + 4 * nnz * d
+    fused_bytes = x_bytes + 12 * nnz + 4 * probe.blocked.nrows * d
+    fused_ops = 2 * nnz * d / F32_FLOPS * 1e3
+    bounds = {"resident_row_gather": (gather_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+              "fused_window_spmm": max((fused_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                                       (fused_ops, "operations"))}
+    rows = []
+    for kname, (replaces, k_probe, kb_probe, p_probe, lib_probe) in PROBE_KERNELS.items():
+        b_ms, b_by = bounds[kname]
+        rows.append(dict(
+            name=kname, route="cuda",
+            source="hypergraph_diffusion_for_recommendation_tpu_torch/csrc/gather_fusion.cu",
+            replaces=replaces, launches=launches[kname], max_abs_err=worst[kname],
+            ms=ms[k_probe], plain_ms=ms[p_probe], bound_ms=b_ms, bound_by=b_by,
+            library_ms=ms[lib_probe],
+        ))
+        log(f"[probe] {kname}: {launches[kname]} launches on the probe path; device ms per call "
+            f"f32 {ms[k_probe]:.4f} (bf16 {ms[kb_probe]:.4f}), plain "
+            f"{ms[p_probe]:.4f}, {lib_probe[3:]} {ms[lib_probe]:.4f}, bound {b_ms:.4f} ({b_by})")
+    log(f"[probe] kernel 1 (segment_spmm_rows) on the same layout: f32 "
+        f"{ms['5. blocked_spmm f32']:.4f} ms, bf16 {ms['5b. blocked_spmm bf16']:.4f} ms")
+    return rows
+
+
+def _zero_spmm_launches() -> None:
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import segment_spmm as S
+
+    for k in S.LAUNCHES:
+        S.LAUNCHES[k] = 0
+
+
+def _spmm_launches() -> dict[str, int]:
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import segment_spmm as S
+
+    return {k: v for k, v in S.LAUNCHES.items() if v}
+
+
+def _layout_name(b) -> str:
+    return ("dedup" if b.dedup else "base") + ("_int8" if b.int8 else "") + (
+        "_bf16" if b.bf16 and not b.int8 else "")
+
+
+def phase_hd(shape: str, data, card: str):
+    """HGNN_HD3 at full width: the encode and one training step through the
+    kernels against the plain versions, the launch counts, then
+    `TRAIN_STEPS` Trainer steps and the step's timing. Returns (summary,
+    the Recommender, whose device data the variant phase reuses)."""
+    from unittest import mock
+
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops import sparse
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import segment_spmm as S
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender, Trainer
+
+    tag = f"HGNN_HD3/{shape}"
+    # MODEL_DEFAULTS["HGNN_HD3"]: hyper_dim 128, n_layers 2, batch 2048,
+    # drop_rate 0.2, cl_rate 1e-5, temp 0.2; mode full; bf16 gathered operand
+    cfg = make_config("HGNN_HD3", compute_dtype="bfloat16", eval_user_batch=512,
+                      item_ranking=(10, 20, 40))
+    t0 = time.time()
+    rec = Recommender(cfg, DEVICE)
+    rec.build(data)
+    build_s = time.time() - t0
+    bundle, cf = rec.bundle, rec.cf_dev
+    layouts = {}
+    for field in ("adj", "b_hyper"):
+        pair = getattr(cf, field)
+        for side in ("fwd", "bwd"):
+            b = getattr(pair, side).blocked
+            if b is None or not b.bf16:
+                raise AssertionError(f"{tag}: {field}.{side} has no bf16 kernel layout")
+            layouts[f"{field}.{side}"] = f"{_layout_name(b)} {b.nrows}x{b.ncols}"
+    rec.init_weights(SEED)
+
+    # --- the encode through the kernels (counted) and through the plain versions
+    _zero_spmm_launches()
+    u_emb, i_emb = rec.encode()
+    torch.cuda.synchronize()
+    enc_launches = _spmm_launches()
+    if sum(enc_launches.values()) != HD3_ENCODE_LAUNCHES:
+        raise AssertionError(f"{tag}: one encode launched {enc_launches}, expected "
+                             f"{HD3_ENCODE_LAUNCHES} in all")
+    with mock.patch.object(sparse, "blocked_spmm", S.blocked_spmm_reference):
+        pu, pi = bundle.encode_eval(rec.extras)
+    enc_err = max(float((u_emb - pu).abs().max()), float((i_emb - pi).abs().max()))
+    scale = max(float(pu.abs().max()), float(pi.abs().max()))
+    if not (torch.isfinite(u_emb).all() and torch.isfinite(i_emb).all()):
+        raise AssertionError(f"{tag}: non-finite tables")
+    if not enc_err <= ENCODE_RTOL * max(scale, 1.0):
+        raise AssertionError(f"{tag}: encode through the kernels differs from the plain version "
+                             f"by {enc_err:.3e} (table scale {scale:.3f})")
+
+    # --- one step through the kernels (counted) and through the plain versions:
+    # the same batch, edge key and feature-dropout generator seed
+    trainer = Trainer(bundle, seed=SEED, extras=rec.extras)
+    batches = trainer.sample_epoch()
+    batch = tuple(t[0] for t in batches)
+    keys = trainer.edge_keys()
+    names, params = zip(*bundle.module.named_parameters())
+
+    def loss_and_grads():
+        gen = torch.Generator(DEVICE).manual_seed(SEED)
+        loss, _ = bundle.batch_loss(rec.extras, batch, keys, gen)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads
+
+    _zero_spmm_launches()
+    loss_k, grads_k = loss_and_grads()
+    step_launches = _spmm_launches()
+    if sum(step_launches.values()) != 2 * HD3_ENCODE_LAUNCHES:
+        raise AssertionError(f"{tag}: one training step launched {step_launches}, expected "
+                             f"{2 * HD3_ENCODE_LAUNCHES} in all")
+    with mock.patch.object(sparse, "blocked_spmm", S.blocked_spmm_reference):
+        loss_p, grads_p = loss_and_grads()
+    if _spmm_launches() != step_launches:
+        raise AssertionError(f"{tag}: the plain versions launched a kernel")
+    loss_rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
+    grad_rel = {}
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        if not torch.isfinite(gk).all():
+            raise AssertionError(f"{tag}: non-finite gradient of {name}")
+        grad_rel[name] = float((gk - gp).abs().max()) / max(float(gp.abs().max()), 1e-30)
+    worst = max(grad_rel, key=grad_rel.get)
+    log(f"[hd] {tag}: encode max_abs_err {enc_err:.3e} (scale {scale:.3f}); loss kernels "
+        f"{loss_k:.6f} plain {loss_p:.6f} (rel {loss_rel:.2e}); worst gradient {worst} rel "
+        f"{grad_rel[worst]:.2e}; launches an encode {enc_launches}, a step {step_launches}")
+    if not loss_rel <= LOSS_RTOL or grad_rel[worst] > TRAIN_RTOL:
+        raise AssertionError(f"{tag}: the step through the kernels differs from the plain one")
+
+    # --- the main path: Trainer steps, counted
+    _zero_spmm_launches()
+    t0 = time.time()
+    for s in range(TRAIN_STEPS):
+        i = s % batches[0].shape[0]
+        loss_t, _ = trainer.train_step(tuple(t[i] for t in batches), trainer.edge_keys())
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = _spmm_launches()
+    if sum(launches.values()) != TRAIN_STEPS * 2 * HD3_ENCODE_LAUNCHES:
+        raise AssertionError(f"{tag}: {TRAIN_STEPS} steps launched {launches}")
+    loss = float(loss_t)
+    if not math.isfinite(loss):
+        raise AssertionError(f"{tag}: non-finite training loss {loss}")
+
+    step = lambda: trainer.train_step(batch, keys)  # noqa: E731
+    wall = cuda_ms(step, iters=5, warmup=1)
+    dev, split = device_ms(step, iters=5)
+    top = sorted(split.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[hd] {tag} step device time by kernel (ms per step, of {dev:.4f}):")
+    for name, t in top:
+        log(f"[hd]   {t:.4f}  {name[:110]}")
+    summary = dict(
+        model="HGNN_HD3", shape=shape, card=card, layouts=layouts, build_s=round(build_s, 3),
+        n_train=int(cf.n_train), steps=TRAIN_STEPS, run_s=round(run_s, 3),
+        launches_per_encode=enc_launches, launches_per_step=step_launches, loss=loss,
+        encode_max_abs_err=enc_err, loss_kernels=loss_k, loss_plain=loss_p,
+        loss_rel_err=loss_rel, worst_grad=worst, worst_grad_rel_err=grad_rel[worst],
+        step_wall_ms=round(wall, 4), step_device_ms=round(dev, 4),
+        step_idle_share=round(max(0.0, 1.0 - dev / wall), 4),
+        step_spmm_kernel_ms=round(kernel_only_ms(split), 4),
+    )
+    log(f"[hd] {json.dumps(summary)}")
+    return summary, rec
+
+
+def phase_hd_variants(rec, card: str) -> list[dict]:
+    """Each other HD variant (and HGNN_HD3's single-view modes) on the same
+    device data: one encode and one Trainer step on the card, finite
+    tables and loss, the launches as counted in HD_VARIANTS."""
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.models import build_model
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Trainer
+
+    out = []
+    for (name, mode), want in HD_VARIANTS.items():
+        tag = f"{name}/{mode}"
+        # the variant's own MODEL_DEFAULTS, at full width (hyper_dim 128)
+        bundle = build_model(make_config(name, mode=mode, eval_user_batch=512), rec.cf_dev)
+        trainer = Trainer(bundle, seed=SEED)
+        batch = tuple(t[0] for t in trainer.sample_epoch())
+        _zero_spmm_launches()
+        u, i = trainer.encode()
+        torch.cuda.synchronize()
+        enc = sum(_spmm_launches().values())
+        _zero_spmm_launches()
+        loss, _ = trainer.train_step(batch, trainer.edge_keys())
+        loss = float(loss)
+        step = sum(_spmm_launches().values())
+        finite = bool(torch.isfinite(u).all() and torch.isfinite(i).all()) and math.isfinite(loss)
+        log(f"[variant] {tag}: loss {loss:.6f}, tables {tuple(u.shape)} {tuple(i.shape)}, "
+            f"launches an encode {enc}, a step {step} (expected {want} and {2 * want})")
+        if not finite or (enc, step) != (want, 2 * want):
+            raise AssertionError(f"{tag}: finite={finite}, launches ({enc}, {step}), expected "
+                                 f"({want}, {2 * want})")
+        out.append(dict(model=name, mode=mode, loss=loss, launches_encode=enc,
+                        launches_step=step, card=card))
+    return out
+
+
+def phase_prop_cache(name: str, data, card: str) -> dict:
+    """`PROP_CACHE_RUN` Trainer steps with prop_cache_steps K: only every
+    K-th step launches a kernel; each step's time between CUDA events, the
+    mean of the cached steps beside the full steps'. Counts the host syncs
+    of the cached steps (torch's sync debug mode)."""
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender, Trainer
+
+    k = PROP_CACHE_STEPS
+    if name == "KHGRec":  # phase 6's configuration
+        cfg = make_config("KHGRec", **KHGREC_TRAIN, prop_cache_steps=k)
+        per_full = 16
+    else:
+        cfg = make_config(name, compute_dtype="bfloat16", eval_user_batch=512,
+                          prop_cache_steps=k)
+        per_full = 2 * HD3_ENCODE_LAUNCHES
+    rec = Recommender(cfg, DEVICE)
+    rec.build(data)
+    rec.init_weights(SEED)
+    trainer = Trainer(rec.bundle, seed=SEED, extras=rec.extras)
+    batches = trainer.sample_epoch()
+    n_b = batches[0].shape[0]
+    per_step, events = [], []
+    syncs = []  # where each host sync of a cached step was called from
+    for s in range(PROP_CACHE_RUN):
+        batch, keys = tuple(t[s % n_b] for t in batches), trainer.edge_keys()
+        cached = s % k != 0
+        _zero_spmm_launches()
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if cached:
+                torch.cuda.set_sync_debug_mode("warn")
+            ev[0].record()
+            trainer.train_step(batch, keys)
+            ev[1].record()
+            torch.cuda.set_sync_debug_mode("default")
+        syncs += [f"{'/'.join(Path(w.filename).parts[-3:])}:{w.lineno}" for w in caught
+                  if "synchroniz" in str(w.message)]
+        torch.cuda.synchronize()
+        per_step.append(sum(_spmm_launches().values()))
+        events.append(ev)
+    want = [0 if s % k else per_full for s in range(PROP_CACHE_RUN)]
+    if per_step != want:
+        raise AssertionError(f"{name}: launches per step {per_step}, expected {want}")
+    if trainer.extras["prop_age"] != PROP_CACHE_RUN:
+        raise AssertionError(f"{name}: prop_age {trainer.extras['prop_age']}")
+    times = [a.elapsed_time(b) for a, b in events]
+    full_ms = statistics.mean(t for s, t in enumerate(times) if s % k == 0)
+    cached_ms = statistics.mean(t for s, t in enumerate(times) if s % k)
+    summary = dict(model=name, card=card, k=k, steps=PROP_CACHE_RUN, launches_per_step=per_step,
+                   full_step_ms=round(full_ms, 4), cached_step_ms=round(cached_ms, 4),
+                   cached_step_host_syncs=len(syncs), sync_sites=sorted(set(syncs)))
+    log(f"[prop_cache] {json.dumps(summary)}")
+    return summary
+
+
 def main() -> int:
     try:
         import torch
@@ -594,8 +929,15 @@ def main() -> int:
         # per training step, as the row's times
         next(r for r in rows if r["name"] == kname)["launches"] = t["launches_per_step"]
         trains.append(t)
-    (OUT_DIR / "summary.json").write_text(
-        json.dumps(dict(kernels=rows, slices=summaries, training=trains), indent=1))
+    rows += phase_probe()
+    lastfm = graphs["lastfm"]["data"]
+    hd, hd_rec = phase_hd("lastfm", lastfm, card)
+    variants = phase_hd_variants(hd_rec, card)
+    del hd_rec
+    caches = [phase_prop_cache(name, lastfm, card) for name in ("KHGRec", "HGNN_HD3")]
+    (OUT_DIR / "summary.json").write_text(json.dumps(dict(
+        kernels=rows, slices=summaries, training=trains, hd=hd, hd_variants=variants,
+        prop_cache=caches), indent=1))
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

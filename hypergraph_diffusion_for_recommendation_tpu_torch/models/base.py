@@ -3,16 +3,17 @@
 A plain registry maps a model name to a `build(cfg, cf, kg) -> ModelBundle`
 factory. In the port a bundle holds its `nn.Module` (which owns the
 parameters) and the functions around it; `extras` carries state that the
-optimiser does not train (KHGRec's KG attention adjacency).
+optimiser does not train (KHGRec's KG attention adjacency, the tables and
+the host-integer age of cached propagation).
 
-Only the KHGRec family is registered so far; the rest of the zoo comes
-with later slices of the port.
+The KHGRec family and the HD family are registered so far; the rest of
+the zoo comes with later slices of the port.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -20,7 +21,7 @@ from torch import nn
 from ..core.config import Config
 from ..data.device import CFDeviceData, KGDeviceData
 
-Extras = dict[str, torch.Tensor]
+Extras = dict[str, "torch.Tensor | int"]  # tensors, and cached propagation's host-int age
 
 
 @dataclass
@@ -36,11 +37,13 @@ class ModelBundle:
     init: Callable[[torch.Generator], Extras]
     # extras -> (user_emb [U, d], item_emb [I, d]): deterministic, full graph
     encode_eval: Callable[[Extras], tuple[torch.Tensor, torch.Tensor]]
-    # (extras, batch, edge_keys) -> (loss, aux): the training loss of one
-    # batch; aux["_new_extras"], when present, replaces the extras for the
-    # NEXT step (KHGRec's attention, KHGRec.py:120-126). edge_keys: one
-    # pair of uint32 dropout key words per dropped adjacency
-    batch_loss: Optional[Callable[[Extras, Any, Any], tuple[torch.Tensor, dict]]] = None
+    # (extras, batch, edge_keys, generator=None) -> (loss, aux): the training
+    # loss of one batch; aux["_new_extras"], when present, replaces the
+    # extras for the NEXT step (KHGRec's attention, KHGRec.py:120-126).
+    # edge_keys: one pair of uint32 dropout key words per dropped adjacency;
+    # generator: the torch.Generator on the card that feature dropout draws
+    # from (the HD family's; KHGRec has none and ignores it)
+    batch_loss: Optional[Callable[..., tuple[torch.Tensor, dict]]] = None
     # adjacencies batch_loss drops edges on, so edge_keys pairs it takes
     n_edge_keys: int = 0
     # whether the reference steps ReduceLROnPlateau for this model
@@ -64,6 +67,7 @@ def register_model(name: str):
 # builders consume (the JAX package's table, cut to the ported modules)
 _MODULE_DATA_NEEDS = {
     "khgrec": frozenset({"adj"}),
+    "hd_family": frozenset({"adj", "b_hyper"}),
 }
 
 

@@ -16,9 +16,17 @@ both adjacencies, each with its own key (:169-183); BPR + L2 (:341-345),
 TransR + L2 (:347-365), the cross-view SSL (:367-372) in modes full /
 woatt; and the attention for the NEXT batch scored under `no_grad` from
 this step's KG forward (:120-126, `attention_extras`). LayerNorms use
-epsilon 1e-6, flax's default. The opt-in cached-propagation steps
-(`prop_cache_steps`) and the joint (block-diagonal) encode are not
-ported yet.
+epsilon 1e-6, flax's default.
+
+Cached propagation (`cfg.prop_cache_steps` = K > 1, the JAX package's
+`cached_loss`): every K-th step (`prop_age % K == 0`, so the first) runs
+`full_loss`, which also leaves this forward's propagated tables in the
+extras (`prop_u`, `prop_icf`, `prop_fused`, `prop_ent`); the steps between
+run `cached_loss` on them, with the straight-through
+`st(prop, ego) = prop + ego - ego.detach()` into the shared entity table,
+and no SpMM. `prop_age` is a host integer: choosing the branch reads
+nothing from the card. The joint (block-diagonal) encode is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -38,9 +46,7 @@ from .kg_common import (
     attention_values,
     project_by_relation,
 )
-from .layers import AttentionFusion, hgcn_conv, leaky
-
-LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon (torch defaults to 1e-5)
+from .layers import LN_EPS, AttentionFusion, hgcn_conv, leaky
 
 
 class SelfAwareEncoder(nn.Module):
@@ -148,6 +154,8 @@ def _build_khgrec(name: str):
         use_ssl = cfg.mode in ("full", "woatt", "wo_attention")
         use_att = cfg.mode in ("full", "wossl", "wo_ssl")
         keep = 1.0 - cfg.drop_rate
+        k_cache = max(int(cfg.prop_cache_steps or 0), 0)
+        use_prop_cache = k_cache > 1
         device = cf.edge_u.device
         module = KHGRecModule(
             kg.n_entities, kg.n_relations, cf.n_users,
@@ -161,18 +169,37 @@ def _build_khgrec(name: str):
             # the JAX bundle's initial attention: b self-loops of weight 1
             b = cfg.batch_size_kg
             idx = torch.arange(b, dtype=torch.int32, device=device) % kg.n_entities
-            return {"att_h": idx, "att_t": idx.clone(),
-                    "att_v": torch.ones(b, dtype=torch.float32, device=device)}
+            extras = {"att_h": idx, "att_t": idx.clone(),
+                      "att_v": torch.ones(b, dtype=torch.float32, device=device)}
+            if use_prop_cache:
+                # age 0: the first step takes the full branch and fills the tables
+                zeros = lambda n: torch.zeros(n, cfg.hyper_dim, device=device)  # noqa: E731
+                extras.update(prop_age=0, prop_u=zeros(cf.n_users), prop_icf=zeros(cf.n_items),
+                              prop_fused=zeros(cf.n_items), prop_ent=zeros(kg.n_entities))
+            return extras
 
         @torch.no_grad()
         def encode_eval(extras: Extras):
             u_cf, _, _, _, _, fused = module(cf, kg, _att(extras), use_att)
             return u_cf, fused
 
-        def full_loss(extras: Extras, batch, edge_keys):
+        def transr_loss(hpn_rows: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+            """TransR KG loss + L2 (:347-365) of the stacked [head; pos tail;
+            neg tail] entity rows, one batched projection."""
+            r_emb = module.relation_emb[r]
+            proj3 = project_by_relation(hpn_rows, module.trans_M, torch.cat([r, r, r]))
+            r_mul_h, r_mul_pos, r_mul_neg = proj3.chunk(3)
+            pos_score = torch.sum(torch.square(r_mul_h + r_emb - r_mul_pos), dim=1)
+            neg_score = torch.sum(torch.square(r_mul_h + r_emb - r_mul_neg), dim=1)
+            kg_loss = torch.mean(-torch.nn.functional.logsigmoid(neg_score - pos_score))
+            return kg_loss + l2_reg_loss(cfg.reg_kg, r_mul_h, r_emb, r_mul_pos,
+                                         r_mul_neg) / cfg.batch_size_kg
+
+        def full_loss(extras: Extras, batch, edge_keys, generator=None):
             """(loss, aux) of one training batch; aux holds the loss terms
             (detached) and, under "_new_extras", the attention for the
-            next batch."""
+            next batch (and the refreshed cached tables). KHGRec has no
+            feature dropout: `generator` is not read."""
             users, pos, neg, h, r, pt, nt = (t.long() for t in batch)
             u_cf, i_cf, ent_kg, u_kg, i_kg, fused = module(
                 cf, kg, _att(extras), use_att, keep, edge_keys)
@@ -182,22 +209,18 @@ def _build_khgrec(name: str):
             ue, pe, ne = upn.chunk(3)
             rec = bpr_loss(ue, pe, ne)
             cf_loss = rec + l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
-            # TransR KG loss on the KG-encoded entities, one batched projection
-            r_emb = module.relation_emb[r]
-            proj3 = project_by_relation(ent_kg[torch.cat([h, pt, nt])], module.trans_M,
-                                        torch.cat([r, r, r]))
-            r_mul_h, r_mul_pos, r_mul_neg = proj3.chunk(3)
-            pos_score = torch.sum(torch.square(r_mul_h + r_emb - r_mul_pos), dim=1)
-            neg_score = torch.sum(torch.square(r_mul_h + r_emb - r_mul_neg), dim=1)
-            kg_loss = torch.mean(-torch.nn.functional.logsigmoid(neg_score - pos_score))
-            kg_loss = kg_loss + l2_reg_loss(cfg.reg_kg, r_mul_h, r_emb, r_mul_pos,
-                                            r_mul_neg) / cfg.batch_size_kg
+            kg_loss = transr_loss(ent_kg[torch.cat([h, pt, nt])], r)
             loss = cf_loss + kg_loss
+            # scored from THIS forward's KG embeddings, without gradient
+            new_extras = attention_extras(module, ent_kg.detach(), batch[3], batch[4], batch[5])
+            if use_prop_cache:
+                # the tables of THIS forward (the step's edge-dropout draw
+                # included), as in the JAX package
+                new_extras.update(prop_age=extras["prop_age"] + 1, prop_u=u_cf.detach(),
+                                  prop_icf=i_cf.detach(), prop_fused=fused.detach(),
+                                  prop_ent=ent_kg.detach())
             aux = {"rec_loss": rec.detach(), "cf_loss": cf_loss.detach(),
-                   "kg_loss": kg_loss.detach(),
-                   # scored from THIS forward's KG embeddings, without gradient
-                   "_new_extras": attention_extras(module, ent_kg.detach(), batch[3],
-                                                   batch[4], batch[5])}
+                   "kg_loss": kg_loss.detach(), "_new_extras": new_extras}
             if use_ssl:
                 uu, um = unique_mask(users)
                 iu, im = unique_mask(pos)
@@ -212,9 +235,65 @@ def _build_khgrec(name: str):
                 loss = loss + ssl
             return loss, aux
 
+        def cached_loss(extras: Extras, batch, edge_keys, generator=None):
+            """The between-refresh step: full_loss's formulas on the cached
+            tables, each row with a straight-through identity path into
+            its own entry of the entity table (the encoders' per-layer
+            `LN(conv) + res` residual makes that a true Jacobian term).
+            The LayerNorms and the attention fusion get gradients only on
+            full steps; relation_emb and trans_M train as in full_loss."""
+            users, pos, neg, h, r, pt, nt = (t.long() for t in batch)
+            table = module.user_entity_emb
+
+            def st(prop_rows, ego_rows):
+                return prop_rows + ego_rows - ego_rows.detach()
+
+            user_idx, item_idx = kg.user_idx.long(), kg.item_idx.long()
+            upn_ids = torch.cat([user_idx[users], item_idx[pos], item_idx[neg]])
+            ego_u, ego_p, ego_n = table[upn_ids].chunk(3)
+            ue = st(extras["prop_u"][users], ego_u)
+            pe = st(extras["prop_fused"][pos], ego_p)
+            ne = st(extras["prop_fused"][neg], ego_n)
+            rec = bpr_loss(ue, pe, ne)
+            cf_loss = rec + l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+            hpn = torch.cat([h, pt, nt])
+            kg_loss = transr_loss(st(extras["prop_ent"][hpn], table[hpn]), r)
+            loss = cf_loss + kg_loss
+            # the next batch's attention, scored from the cached entity table
+            new_extras = attention_extras(module, extras["prop_ent"], batch[3], batch[4],
+                                          batch[5])
+            new_extras.update({k: extras[k] for k in ("prop_u", "prop_icf", "prop_fused",
+                                                      "prop_ent")},
+                              prop_age=extras["prop_age"] + 1)
+            aux = {"rec_loss": rec.detach(), "cf_loss": cf_loss.detach(),
+                   "kg_loss": kg_loss.detach(), "_new_extras": new_extras}
+            if use_ssl:
+                uu, um = unique_mask(users)
+                iu, im = unique_mask(pos)
+                u_ent, i_ent = user_idx[uu], item_idx[iu]
+                u_cf_v = st(extras["prop_u"][uu], table[u_ent])
+                i_cf_v = st(extras["prop_icf"][iu], table[i_ent])
+                u_kg_v = st(extras["prop_ent"][u_ent], table[u_ent])
+                i_kg_v = st(extras["prop_ent"][i_ent], table[i_ent])
+                ssl = contrast_loss_pregathered(u_cf_v, u_kg_v, um, cfg.temp)
+                ssl = ssl + contrast_loss_pregathered(i_cf_v, i_kg_v, im, cfg.temp)
+                ssl = cfg.cl_rate * ssl
+                aux["cl_loss"] = ssl.detach()
+                loss = loss + ssl
+            return loss, aux
+
+        if use_prop_cache:
+
+            def batch_loss(extras: Extras, batch, edge_keys, generator=None):
+                step = full_loss if extras["prop_age"] % k_cache == 0 else cached_loss
+                return step(extras, batch, edge_keys, generator)
+
+        else:
+            batch_loss = full_loss
+
         return ModelBundle(name=name, cfg=cfg, cf=cf, kg=kg, uses_kg=True,
                            module=module, init=init, encode_eval=encode_eval,
-                           batch_loss=full_loss, n_edge_keys=2)
+                           batch_loss=batch_loss, n_edge_keys=2)
 
     return builder
 

@@ -6,7 +6,9 @@ Dropped edges keep their slot with value 0 and survivors are rescaled by
 The keep-mask is a counter hash of (key, edge id): each layout of one
 edge (forward, transpose, packed kernel blocks) draws the same bit from
 its own constant id array, with no gathers (`AdjPair.dropped`).
-`drop_edges` and the node-dropout helpers come with the model zoo.
+`feature_dropout` is flax's `nn.Dropout` on activations, drawn from an
+explicit `torch.Generator`. `drop_edges` and the node-dropout helpers come
+with the model zoo.
 """
 
 from __future__ import annotations
@@ -43,6 +45,22 @@ def hash_keep_mask(key: tuple[int, int], ids: torch.Tensor, keep_rate: float) ->
     # z >> 8 < 2^24 is exact in f32; JAX compares with keep_rate as f32
     u = (z >> 8).to(torch.float32) * (1.0 / (1 << 24))
     return u < float(np.float32(keep_rate))
+
+
+def feature_dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+                    train: bool) -> torch.Tensor:
+    """flax `nn.Dropout` on features: off when not training or at rate 0;
+    otherwise each element is kept with probability 1 - rate and scaled
+    by 1 / (1 - rate), and rate 1 gives zeros. The keep draws come from
+    `generator` (on x's device), torch's default one when None: flax's
+    PRNG stream itself cannot be reproduced."""
+    if not train or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 def key_words(generator: torch.Generator) -> tuple[int, int]:

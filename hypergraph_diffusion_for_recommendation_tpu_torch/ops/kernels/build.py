@@ -1,7 +1,8 @@
 """Build a CUDA source of `csrc/` into a shared library at first use.
 
 Each source has a plain C interface and is compiled on its own by `nvcc`
-for Hopper (`sm_90a`), then loaded with ctypes. Nothing here runs when a
+for Hopper (`sm_90a`), then loaded with ctypes; `build_libraries` starts
+the compilers of several sources together. Nothing here runs when a
 module is imported: the CPU tests import every module, and the CPU has
 no `nvcc`.
 
@@ -66,6 +67,16 @@ def build_library(name: str) -> Path:
             BUILD_LOGS[name] = proc.stderr
             os.replace(tmp, out)
     return out
+
+
+def build_libraries(names) -> None:
+    """Compile several sources at once: one `nvcc` each, all started
+    together (the builds wait on processes, not on Python)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        list(pool.map(build_library, names))
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -24,6 +24,15 @@ def scatter_sum(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: i
     return out.index_add_(0, ids, values)[:num_segments]
 
 
+def scatter_mean(values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Segment mean (the JAX `scatter_mean`, torch_scatter's reduce='mean'
+    in the reference's ED-HNN operator): sums over counts, an empty
+    segment 0. Every value with an id in range counts, zeros included."""
+    sums = scatter_sum(values, segment_ids, num_segments)
+    counts = scatter_sum(values.new_ones((values.shape[0], 1)), segment_ids, num_segments)
+    return sums / torch.clamp(counts, min=1.0)
+
+
 def spmm(a: SparseCOO, x: torch.Tensor) -> torch.Tensor:
     """A @ X for padded row-sorted COO A: [n, m] x [m, d] -> [n, d].
 

@@ -1,7 +1,7 @@
 """Reference-style facade — the port of the JAX package's
 `train/recommender.py`:
 
-    rec = Recommender(make_config("KHGRec"))   # runs on cuda by default
+    rec = Recommender(make_config("KHGRec"))   # or "HGNN_HD3"; runs on cuda by default
     rec.execute()                              # build -> train -> test
     rec.recommend(raw_user_id, k=20)           # [(raw_item_id, score)]
 
@@ -35,9 +35,11 @@ class Recommender:
 
     # -- lifecycle ------------------------------------------------------
     def build(self, data=None) -> None:
-        """Build the interaction and knowledge data, their device graphs
-        and the model. `data` is a (train, test, kg_df) triple; None
-        resolves the configured dataset (only `synthetic` so far)."""
+        """Build the interaction data (and, with `cfg.use_knowledge`, the
+        knowledge data), their device graphs and the model. `data` is a
+        (train, test, kg_df) triple, kg_df None or ignored for a model
+        without knowledge; None resolves the configured dataset (only
+        `synthetic` so far)."""
         from ..data import (
             build_cf_device_data,
             build_interaction,
@@ -76,9 +78,12 @@ class Recommender:
         self.extras = self.bundle.init(torch.Generator().manual_seed(seed))
 
     def load_weights(self, state_dict: dict, extras: dict) -> None:
-        """Trained weights, e.g. from `weights.khgrec_params_from_jax`."""
+        """Trained weights, e.g. from `weights.khgrec_params_from_jax` or
+        `weights.hd_params_from_jax`; extras that are not tensors (the
+        cached-propagation age) are kept as they are."""
         self.bundle.module.load_state_dict(state_dict)
-        self.extras = {k: v.to(self.device) for k, v in extras.items()}
+        self.extras = {k: v.to(self.device) if torch.is_tensor(v) else v
+                       for k, v in extras.items()}
 
     def train(self, quiet: bool = True):
         """Fit the model (`Trainer.fit`, `cfg.max_epoch` epochs at most),

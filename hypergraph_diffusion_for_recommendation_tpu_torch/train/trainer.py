@@ -22,8 +22,11 @@ Parity points:
 
 Randomness comes from explicit generators seeded with `cfg.seed`: a CPU
 one for the initial weights (the same as `Recommender.init_weights`), a
-CPU one for the dropout key words and the exact sampler's seeds, and one
-on the card for the redraw sampler. Chunked execution, donation,
+CPU one for the edge-dropout key words and the exact sampler's seeds, one
+on the card for the redraw sampler, and one on the card that feature
+dropout draws from (passed to `batch_loss`). A model with cached
+propagation keeps its step counter as a host integer in the extras, so
+no step waits on the card to pick its branch. Chunked execution, donation,
 meshes, checkpoints and the alternating KGAT path wait.
 """
 
@@ -80,6 +83,7 @@ class Trainer:
         self.extras = bundle.init(torch.Generator().manual_seed(seed)) if extras is None else extras
         self.host_gen = torch.Generator().manual_seed(seed + 1)
         self.dev_gen = torch.Generator(self.device).manual_seed(seed + 2)
+        self.drop_gen = torch.Generator(self.device).manual_seed(seed + 3)
         params = list(bundle.module.parameters())
         for p in params:
             # zero, not None: Adam then updates (decays) every parameter
@@ -141,7 +145,7 @@ class Trainer:
         """One optimiser step on one batch; returns the (detached) loss and
         aux terms, still on the card."""
         self.opt.zero_grad(set_to_none=False)
-        loss, aux = self.bundle.batch_loss(self.extras, batch, edge_keys)
+        loss, aux = self.bundle.batch_loss(self.extras, batch, edge_keys, self.drop_gen)
         loss.backward()
         self.opt.step()
         new_extras = aux.pop("_new_extras", None)

@@ -13,11 +13,19 @@ JAX) onto `KHGRecModule.state_dict()` names:
 (Xavier-uniform tables with flax's fan convention, LeCun truncated-normal
 Dense kernels, zero biases, unit LayerNorm scales) from a
 `torch.Generator`, for runs on a machine without JAX.
+
+The HD family's modules name their submodules after flax's auto-names, so
+`hd_params_from_jax` maps any flax tree of an `HDModule` (its parameters
+or their gradients) by path: `a/b/kernel` -> `a.b.weight` transposed,
+`a/b/scale` -> `a.b.weight`, any other leaf by its own name. `init_hd`
+draws flax's initialisers for it (`HWNNLayer`: `par` from U[0, 0.99),
+`diagonal_weight_filter` from U(0.99, 1.01), a Xavier `weight_matrix`).
 """
 
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -102,3 +110,59 @@ def khgrec_params_from_jax(
             "att_v": torch.as_tensor(np.asarray(extras_np["att_v"], np.float32), device=device),
         }
     return sd, extras
+
+
+def init_hd(module: nn.Module, generator: torch.Generator) -> dict[str, torch.Tensor]:
+    """A fresh state dict for an `HDModule`, drawn on the CPU from
+    `generator` in state-dict order and placed on the module's device."""
+    from .models.layers import HWNNLayer
+
+    kinds = dict(module.named_modules())
+    out: dict[str, torch.Tensor] = {}
+    for name, p in module.state_dict().items():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = kinds[owner_name]
+        shape = tuple(p.shape)
+        if isinstance(owner, HWNNLayer):
+            if leaf == "par":
+                v = torch.rand(shape, generator=generator) * 0.99
+            elif leaf == "diagonal_weight_filter":
+                v = 0.99 + 0.02 * torch.rand(shape, generator=generator)
+            else:
+                v = _xavier_uniform(shape, generator)
+        elif leaf in ("user_emb", "item_emb"):
+            v = _xavier_uniform(shape, generator)
+        elif isinstance(owner, nn.Linear) and leaf == "weight":
+            v = _lecun_normal(shape[0], shape[1], generator)
+        elif leaf == "bias":
+            v = torch.zeros(shape)
+        elif isinstance(owner, nn.LayerNorm) and leaf == "weight":
+            v = torch.ones(shape)
+        else:
+            raise KeyError(f"init_hd: no initialiser for {name}")
+        out[name] = v.to(device=p.device, dtype=p.dtype)
+    return out
+
+
+def hd_params_from_jax(params_np: dict, device: torch.device | str | None = None
+                       ) -> dict[str, torch.Tensor]:
+    """flax `params["params"]` tree of an HD model (or a gradient tree of
+    the same shape), as numpy arrays -> `HDModule` state dict on `device`
+    (the GPU unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(tree: dict, prefix: str) -> None:
+        for key, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{key}.")
+                continue
+            a = np.asarray(v, np.float32)
+            if key == "kernel":  # flax Dense [in, out] -> torch Linear [out, in]
+                key, a = "weight", a.T
+            elif key == "scale":  # flax LayerNorm
+                key = "weight"
+            out[prefix + key] = torch.tensor(a, device=device)  # a copy: JAX arrays are read-only
+
+    walk(params_np, "")
+    return out

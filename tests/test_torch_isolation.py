@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing it (and serving and training
-on the CPU) pulls in neither JAX, flax, optax, nor the JAX package."""
+KHGRec and HGNN_HD3 on the CPU) pulls in neither JAX, flax, optax, nor the
+JAX package."""
 
 import subprocess
 import sys
@@ -12,9 +13,12 @@ import sys
 import hypergraph_diffusion_for_recommendation_tpu_torch as P
 from hypergraph_diffusion_for_recommendation_tpu_torch import (
     core, data, eval, models, native, ops, serving_cli, train, weights)
-from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import build, segment_spmm
+from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import (
+    build, gather_fusion, segment_spmm)
 from hypergraph_diffusion_for_recommendation_tpu_torch.ops import dropout, losses, sampling
 from hypergraph_diffusion_for_recommendation_tpu_torch.train import optim, trainer
+from hypergraph_diffusion_for_recommendation_tpu_torch.models import hd_family, layers
+from hypergraph_diffusion_for_recommendation_tpu_torch.bench import gather_fusion as probe, timing
 {extra}
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
@@ -40,6 +44,23 @@ assert set(rec.execute()) == {10, 20}
 assert len(rec.result.history) == 1
 """
 
+# an HD-family model (no knowledge graph), trained with cached propagation
+_RUN_HD = """
+from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+from hypergraph_diffusion_for_recommendation_tpu_torch.data import synthetic_dataset
+from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender
+rec = Recommender(make_config('HGNN_HD3', hyper_dim=16, batch_size=256, eval_user_batch=64,
+                              item_ranking=(10, 20), max_epoch=2, prop_cache_steps=2),
+                  device='cpu')
+rec.build(synthetic_dataset(n_users=60, n_items=80, mean_degree=10.0, seed=1))
+assert rec.bundle.kg is None and rec.cf_dev.b_hyper is not None
+out = rec.execute()
+assert set(out) == {10, 20}
+assert len(rec.result.history) == 2
+assert set(rec.result.history[0].losses) == {'train_loss', 'rec_loss', 'reg_loss', 'cl_loss'}
+assert rec.extras['prop_age'] == 2 * rec.trainer.n_batches
+"""
+
 
 def _probe(extra: str = ""):
     return subprocess.run([sys.executable, "-c", _PROBE.format(extra=extra)], cwd=REPO,
@@ -54,6 +75,12 @@ def test_import_pulls_in_no_jax():
 
 def test_serving_and_training_run_without_jax():
     proc = _probe(_RUN)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_hd_training_runs_without_jax():
+    proc = _probe(_RUN_HD)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
 

@@ -145,3 +145,122 @@ def test_spmm_pair_backward_launches_the_kernel(cuda, gather_layout):
     want = tsp.blocked_spmm_reference(pair.bwd.blocked, w)
     scale = float(want.abs().max())
     torch.testing.assert_close(x.grad, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+def _probe_case(case: str, device):
+    """(layout, X, gather indices): the probe's data at a small size; an
+    nnz that is not a multiple of the edge blocks; or rows in the first and
+    last windows only, so the windows between have one all-pad block."""
+    from hypergraph_diffusion_for_recommendation_tpu_torch.bench.gather_fusion import make_probe
+
+    if case != "empty_windows":
+        nnz = 8192 if case == "probe" else 8192 - 333
+        p = make_probe(device, n=3000, d=128, nnz=nnz, eb=1024)
+        return p.blocked, p.x, p.idx
+    rng = np.random.default_rng(4)
+    n, nnz = 1100, 1500
+    rows = np.sort(np.concatenate([rng.integers(0, 200, 1000), rng.integers(1030, n, nnz - 1000)]))
+    cols = rng.integers(0, n, nnz)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    blocked = tsp.pack_blocked(rows, cols, vals, (n, n), device=device)
+    x = torch.randn(n, 128, device=device, generator=torch.Generator(device).manual_seed(5))
+    return blocked, x, torch.as_tensor(cols.astype(np.int32), device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["probe", "ragged_nnz", "empty_windows"])
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_probe_kernels_match_plain(cuda, case, mode):
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import gather_fusion as G
+
+    blocked, x, idx = _probe_case(case, cuda)
+    blocked = blocked.replace(bf16=mode == "bf16")
+    table = x if mode == "f32" else x.to(torch.bfloat16)
+    before = dict(G.LAUNCHES)
+    got_g = G.resident_row_gather(table, idx)
+    got_f = G.fused_window_spmm(blocked, x)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["resident_row_gather"] == before["resident_row_gather"] + 1
+    assert G.LAUNCHES["fused_window_spmm"] == before["fused_window_spmm"] + 1
+    # the gather copies rows: exactly the plain version's
+    assert torch.equal(got_g, G.resident_row_gather_reference(table, idx))
+    want = G.fused_window_spmm_reference(blocked, x)
+    assert got_f.shape == want.shape == (blocked.nrows, 128)
+    # the same products summed in another f32 order (shared-memory atomics)
+    torch.testing.assert_close(got_f, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    if case == "empty_windows":
+        assert float(got_f[200:1030].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_probe_wrappers_check_their_input(cuda):
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import gather_fusion as G
+
+    blocked, x, idx = _probe_case("probe", cuda)
+    with pytest.raises(ValueError, match="int32"):
+        G.resident_row_gather(x, idx.long())
+    with pytest.raises(ValueError, match="16 B"):
+        G.resident_row_gather(torch.zeros(10, 3, device=cuda), idx)
+    with pytest.raises(ValueError, match="d % 32"):
+        G.fused_window_spmm(blocked, torch.zeros(x.shape[0], 48, device=cuda))
+    with pytest.raises(ValueError, match="base layout"):
+        G.fused_window_spmm(blocked.replace(int8=True), x)
+
+
+@pytest.mark.gpu
+def test_hd_forward_and_backward_launch_on_b_hyper(cuda):
+    # HGNN_HD3's encode runs 8 products on the square CF adjacency and 16 on
+    # the rectangular b_hyper incidence (the group view's HWNN layers); a
+    # training step runs each again backward. Through the kernels and through
+    # the plain versions the loss and gradients agree.
+    from unittest import mock
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data import (
+        build_cf_device_data,
+        build_interaction,
+        synthetic_dataset,
+    )
+    from hypergraph_diffusion_for_recommendation_tpu_torch.models import build_model
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops import sparse
+
+    train, test, _ = synthetic_dataset(n_users=300, n_items=500, mean_degree=12.0, seed=2)
+    cf = build_cf_device_data(build_interaction(train, test), cuda, needs={"adj", "b_hyper"})
+    n_u, n_i = cf.n_users, cf.n_items
+    b = cf.b_hyper.fwd.blocked
+    assert b is not None and (b.nrows, b.ncols) == (n_u, n_i) and n_u != n_i
+    bundle = build_model(make_config("HGNN_HD3", hyper_dim=32, batch_size=256), cf)
+    bundle.init(torch.Generator().manual_seed(0))
+    calls = []
+    real = tsp.blocked_spmm
+
+    def counted(blocked, x, vals=None):
+        calls.append((blocked.nrows, blocked.ncols))
+        return real(blocked, x, vals)
+
+    with mock.patch.object(sparse, "blocked_spmm", counted):
+        u, i = bundle.encode_eval({})
+    assert u.shape == (n_u, 32) and i.shape == (n_i, 32) and torch.isfinite(u).all()
+    square = sum(1 for s in calls if s == (n_u + n_i,) * 2)
+    assert (square, len(calls) - square) == (8, 16)
+
+    gen = torch.Generator(cuda)
+    batch = tuple(torch.as_tensor(a[:256], device=cuda).int() for a in
+                  (cf.edge_u, cf.edge_i, torch.roll(cf.edge_i, 7)))
+    params = list(bundle.module.parameters())
+
+    def step(fn):
+        with mock.patch.object(sparse, "blocked_spmm", fn):
+            loss, _ = bundle.batch_loss({}, batch, ((11, 12),), gen.manual_seed(3))
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            return float(loss.detach()), grads
+
+    before = sum(tsp.LAUNCHES.values())
+    loss_k, grads_k = step(real)
+    torch.cuda.synchronize()
+    assert sum(tsp.LAUNCHES.values()) == before + 48
+    loss_p, grads_p = step(tsp.blocked_spmm_reference)
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    for gk, gp in zip(grads_k, grads_p):
+        assert gk is not None and gp is not None
+        torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-4 * float(gp.abs().max()))
