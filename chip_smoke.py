@@ -15,7 +15,11 @@ Phases, in order; any failure exits non-zero:
      profiler device times beside the plain version's, one
      `torch.sparse.mm` call's on the same CSR matrix (for the int8
      kernels on the dequantised table: it does not quantise), and the
-     bound;
+     bound; the previous designs' wrapper time beside each row of kernels
+     1 and 2; two
+     calls compared bit for bit (kernel 1 must repeat exactly, the others
+     report); kernel 2 beside kernel 1 on the same ML-1M-density layouts,
+     which says whether `dedup_auto` picks the faster kernel on this card;
   4. the serving slice at the LastFM shape, full width: KHGRec encode
      through the kernels (8 launches), the same encode through the plain
      version, ranking metrics over every test user, export, and top-k
@@ -129,6 +133,30 @@ KHGREC_TRAIN = dict(hyper_dim=D, relation_dim=32, n_layers=2, batch_size=2048,
                     batch_size_kg=8192, mode="full", drop_rate=0.2, p=0.3, temp=1.0,
                     cl_rate=0.01, lrate=0.001, compute_dtype="bfloat16", eval_user_batch=512)
 SOURCES = ("segment_spmm", "gather_fusion")  # csrc/<name>.cu
+# figures of the kernels' previous designs (row chunks with float atomics, a CTA per dedup
+# block with float atomics; this script on an NVIDIA H100 80GB HBM3 at 700 W), printed beside
+# this run's: each phase-3 row's wrapper device ms per call for kernels 1 and 2, by (kernel,
+# graph.matrix.direction, mode), and each kernel's per-step ms at its main-path shape
+BEFORE_WRAPPER_MS = {  # (kernel, graph.matrix.direction): {mode: ms}
+    ("segment_spmm_rows", "lastfm.cf.fwd"): {"f32": 0.0170, "bf16": 0.0180},
+    ("segment_spmm_rows", "lastfm.cf.bwd"): {"f32": 0.0170, "bf16": 0.0180},
+    ("segment_spmm_rows", "lastfm.kg.fwd"): {"f32": 0.0242, "bf16": 0.0284},
+    ("segment_spmm_rows", "lastfm.kg.bwd"): {"f32": 0.0242, "bf16": 0.0288},
+    ("segment_spmm_rows", "ml1m.cf.fwd"): {"f32": 0.0196, "bf16": 0.0194},
+    ("segment_spmm_rows", "ml1m.cf.bwd"): {"f32": 0.0190, "bf16": 0.0194},
+    ("segment_spmm_rows", "ml1m.kg.fwd"): {"f32": 0.0213, "bf16": 0.0194},
+    ("segment_spmm_rows", "ml1m.kg.bwd"): {"f32": 0.0211, "bf16": 0.0196},
+    ("segment_spmm_dedup", "lastfm.cf.fwd"): {"f32": 0.0637, "bf16": 0.0455},
+    ("segment_spmm_dedup", "lastfm.cf.bwd"): {"f32": 0.0640, "bf16": 0.0447},
+    ("segment_spmm_dedup", "lastfm.kg.fwd"): {"f32": 0.0934, "bf16": 0.0616},
+    ("segment_spmm_dedup", "lastfm.kg.bwd"): {"f32": 0.0933, "bf16": 0.0638},
+    ("segment_spmm_dedup", "ml1m.cf.fwd"): {"f32": 0.0801, "bf16": 0.0737},
+    ("segment_spmm_dedup", "ml1m.cf.bwd"): {"f32": 0.0843, "bf16": 0.0761},
+    ("segment_spmm_dedup", "ml1m.kg.fwd"): {"f32": 0.0807, "bf16": 0.0743},
+    ("segment_spmm_dedup", "ml1m.kg.bwd"): {"f32": 0.0828, "bf16": 0.0757},
+}
+BEFORE_STEP_MS = {"segment_spmm_rows": 0.3750, "segment_spmm_dedup": 1.1913,
+               "segment_spmm_rows_int8": 1.6449, "segment_spmm_dedup_int8": 3.6139}
 
 _PROBE_SRC = "scripts/bench_gather_fusion.py"
 PROBE_KERNELS = {
@@ -265,6 +293,7 @@ def phase_kernels(graphs) -> list[dict]:
 
     gen = torch.Generator(DEVICE).manual_seed(SEED)
     rows = []
+    per_step = {}  # (kernel, graph, mode): kernel-alone ms per training step
     for kname, (layout, modes, main_shape, main_mode, replaces) in KERNELS.items():
         pack = S.pack_blocked_dedup if layout == "dedup" else S.pack_blocked
         worst = 0.0
@@ -296,7 +325,9 @@ def phase_kernels(graphs) -> list[dict]:
                             x_lib = x
                         lib_ms = device_ms(lambda: torch.sparse.mm(a_csr, x_lib))[0]
                         got = S.blocked_spmm(blk, x)
+                        again = S.blocked_spmm(blk, x)
                         torch.cuda.synchronize()
+                        repeats = torch.equal(got, again)
                         ref = S.blocked_spmm_reference(blk, x)
                         scale = float(ref.abs().max())
                         err = float((got - ref).abs().max())
@@ -309,16 +340,26 @@ def phase_kernels(graphs) -> list[dict]:
                         p_ms = device_ms(lambda: S.blocked_spmm_reference(blk, x), iters=5)[0]
                         lib_label = "torch.sparse.mm" + (" (dequantised)" if mode == "int8"
                                                          else "")
+                        k_alone = kernel_only_ms(k_split)
+                        key = (kname, gname, mode)
+                        per_step[key] = per_step.get(key, 0.0) + CALLS_PER_STEP * k_alone
+                        before = BEFORE_WRAPPER_MS.get(
+                            (kname, f"{gname}.{mname}.{direction}"), {}).get(mode)
                         log(f"[kernel] {kname} {gname}.{mname}.{direction} {mode} "
                             f"{m.shape[0]}x{m.shape[1]} nnz {m.nnz} blocks {blk.n_blocks}: "
                             f"max_abs_err {err:.3e} rel {err / max(scale, 1e-30):.3e} "
                             f"(vs scipy f32 {err_exact:.3e}) | device ms: wrapper {k_ms:.4f} "
-                            f"(kernel alone {kernel_only_ms(k_split):.4f}) plain {p_ms:.4f} "
+                            f"(kernel alone {k_alone:.4f}; previous design's wrapper "
+                            f"{'-' if before is None else f'{before:.4f}'}) plain {p_ms:.4f} "
                             f"{lib_label} {lib_ms:.4f} bound {b_ms:.4f} ({b_by}) | "
-                            f"one call between events {k_call:.4f} ms {'OK' if ok else 'FAIL'}")
+                            f"one call between events {k_call:.4f} ms | two calls "
+                            f"{'bitwise equal' if repeats else 'DIFFER'} {'OK' if ok else 'FAIL'}")
                         if not ok:
                             raise AssertionError(f"{kname} disagrees with its plain version "
                                                  f"on {gname}.{mname}.{direction} {mode}")
+                        if kname == "segment_spmm_rows" and not repeats:
+                            raise AssertionError(f"{kname}: two calls on {gname}.{mname}."
+                                                 f"{direction} {mode} gave different bits")
                         worst = max(worst, err)
                         if gname == main_shape and mode == main_mode:
                             main["ms"] += CALLS_PER_STEP * k_ms
@@ -332,6 +373,16 @@ def phase_kernels(graphs) -> list[dict]:
             replaces=replaces, launches=0, max_abs_err=worst,
             bound_by="bytes" if bound_by == {"bytes"} else "operations", **main,
         ))
+        log(f"[kernel] {kname} per step at {main_shape} {main_mode}: wrapper {main['ms']:.4f} ms "
+            f"(previous design {BEFORE_STEP_MS[kname]:.4f}), bound {main['bound_ms']:.4f}, "
+            f"torch.sparse.mm {main['library_ms']:.4f}")
+    # does `dedup_auto` (which picks the dedup layout at ML-1M density) pick the faster kernel?
+    for mode in ("bf16", "f32"):
+        k2 = per_step[("segment_spmm_dedup", "ml1m", mode)]
+        k1 = per_step[("segment_spmm_rows", "ml1m", mode)]
+        log(f"[kernel] ML-1M density, {mode}, the same four (matrix, direction) layouts, kernel "
+            f"alone per step: segment_spmm_dedup {k2:.4f} ms, segment_spmm_rows {k1:.4f} ms: "
+            f"dedup_auto's pick is the {'faster' if k2 < k1 else 'slower'} kernel on this card")
     return rows
 
 

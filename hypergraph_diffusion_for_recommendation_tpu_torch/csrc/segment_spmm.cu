@@ -7,70 +7,82 @@
 //                               (pack_blocked_dedup)
 //   segment_spmm_rows_int8   <- _segment_matmul_int8_kernel       (:397), base layout, int8 X
 //   segment_spmm_dedup_int8  <- _segment_matmul_dedup_int8_kernel (:475), dedup layout, int8 X
-// segment_spmm_rows_int8 is the base kernel instantiated on an int8 table (Elem<int8_t>);
-// segment_spmm_dedup_int8 is a kernel of its own; both end in a dequantisation pass. Python
-// binding, checks, the quantisation of X and the plain versions: ops/kernels/segment_spmm.py.
+// segment_spmm_rows_int8 is the base kernel instantiated on an int8 table (Vec<int8_t>);
+// segment_spmm_dedup_int8 is a kernel of its own; both end in a dequantisation pass. The bf16
+// form of segment_spmm_dedup runs on the tensor cores (segment_spmm_dedup_mma_kernel). Python
+// binding, checks, the work lists, the quantisation of X and the plain versions:
+// ops/kernels/segment_spmm.py.
 //
-// What bounds them on the H100: bytes, not operations. The work is one multiply-add per edge
-// and feature (2 * nnz * d FLOP, far below the card's f32 rate), while each call must read the
-// indices and values (8 B per edge in the base layout, 12 B in the dedup layout), the X table
-// (ncols * d * 4 B, or * 2 in bf16, * 1 in int8) and write the output (nrows * d * 4 B). At the
-// main-path shapes (13871 and 19664 rows at d = 128) the table and the output are a few MB each
-// and sit in the 50 MB L2, so in practice the limit is the rate of row gathers and of output
-// writes; an int8 row is one 128 B read at d = 128.
+// What bounds them on the H100. The work is one multiply-add per edge and feature (2 * nnz * d
+// FLOP), while each call must read the indices and values (8 B per edge in the base layout,
+// 12 B in the dedup layout), the X rows in use and write the output (nrows * d * 4 B); by that
+// count all four are bound by bytes. At the main-path shapes (2500-19664 rows, d = 128) the
+// table and the output are a few MB and sit in the 50 MB L2, and what limits the kernels is
+// different: the base kernel by the rate of row gathers out of the L2 (nnz * d * 2 B in bf16,
+// 43-76 MB a call), the dedup kernel by the per-block latency of its staging pipeline.
 //
-// Design, against that bound:
-//  * The TPU kernel keeps a window's output tile resident across consecutive grid steps; on
-//    Hopper nothing carries over between CTAs. The base kernel cuts the work by row instead of
-//    by 256-row window (55 and 77 windows at the LastFM shape would leave most of the 132 SMs
-//    idle). The packer's row order makes a row's slots one contiguous range, which it cuts into
-//    chunks [chunk_start, chunk_end) of at most 64 slots, a warp each: a row of one chunk
-//    is summed in registers and written once, with no atomics and deterministically; the
-//    chunks of a longer row add into the zeroed output with float4 atomics, so the graphs'
-//    hub rows (thousands of edges) do not leave one warp running long after the rest. The
-//    lanes hold d as float4 (d = 128: one float4 per lane, each gathered X row one coalesced
-//    512 B read, 256 B in bf16), read 32 edges' (col, val) in one coalesced load, broadcast
-//    them by shuffles, and keep 8 row gathers in flight before their multiply-adds.
-//  * The dedup layout sorts a window's edges by column, so a row's edges are scattered over
-//    the window's blocks. A CTA per edge block stages the block's <= ub distinct X rows in
-//    shared memory once (the Hopper form of "gather each distinct column once": 128 KB in f32,
-//    64 KB in bf16 at ub = 256, d = 128, through the dynamic shared memory opt-in), then adds
-//    each weight W[r, u] times its staged row into the zeroed output with float4 atomicAdd,
-//    since a window's blocks fall in different CTAs. The order of those adds changes from run
-//    to run: the result agrees with the plain version to f32 summation-order rounding only.
-//    The atomics, one 16-byte add per lane and edge, are what this kernel spends its time on.
+// Design, against that:
+//  * Base kernel (segment_spmm_rows): every output row is written exactly once, by one writer,
+//    with no atomics and no zero fill, so two calls give the same bits. A lane reads 16 B of an
+//    X row (4 f32 or 8 bf16 features; 8 B = 8 int8 features), so a team of G lanes (a power of
+//    two <= 32) covers a row: at d = 128 a bf16 row is half a warp. The whole warp works on one
+//    row at a time, in lockstep: its teams take alternate groups of kGather edges, each team
+//    keeps kGather row gathers in flight, and at the row's end the teams' sums are added by a
+//    fixed shuffle tree. (Teams on different rows would diverge and run one after the other.)
+//    The packer's work list (`warp_rows`) gives each warp of a 256-thread CTA at most
+//    ROWS_PER_WARP consecutive rows (empty ones included, so they come out zero) of at most
+//    ROW_SLOTS slots in all, and lists the CTAs costliest first (a short tail); the next row's first 32 slots load while this row's gathers are in
+//    flight. A row longer than ROW_SLOTS (a hub row: up to 600 edges at these shapes) gets a CTA
+//    of its own: its 8 warps each sum an eighth of the row, and the CTA adds the warps' sums in
+//    warp order through shared memory and writes the row once. 64 registers a thread (launch
+//    bounds): 4 CTAs, 32 warps an SM.
+//  * Dedup kernel (segment_spmm_dedup): the dedup layout sorts a window's edges by column and
+//    closes a block at eb edges or ub distinct columns. At ML-1M density a block has some
+//    10-25 distinct columns for its 512 edges, so staging them reads a small fraction of the
+//    base layout's L2 bytes. A CTA of 512 threads takes one part of a row window's blocks (the
+//    wrapper cuts the blocks into as many parts of near-equal cost as the SMs hold at once: the
+//    windows differ several-fold in blocks and in distinct columns) and one feature slice, and
+//    walks its blocks through a cp.async pipeline one block ahead (the block's distinct X row
+//    slices, its slots in the packer's (row % 16, row, slot) order and their values; the
+//    indices two blocks ahead). Warp w owns the window rows r with r % 16 == w, whose slots are
+//    consecutive in that order, and keeps their sums in registers: no atomics of any kind, a
+//    fixed order, one CTA-wide barrier a block. In bf16 (the main path) the warp writes its rows' W[r, u] (each
+//    (row, column) run's values rounded and summed, then rounded) into its own [16, 64] bf16 W
+//    tile in shared memory and multiplies it by the staged rows with mma.sync m16n8k16 (f32
+//    accumulators): the TPU kernel's W x X on the tensor cores, 16 distinct columns a step. In
+//    f32 it adds each run's W[r, u] * X[u] with f32 multiply-adds. A window of one part writes
+//    its rows straight to the output; the parts of a split window write [rb, d] tiles to an f32
+//    scratch that a second pass (segment_spmm_dedup_sum_parts_kernel) adds in part order.
 //  * bf16 mode rounds where the TPU kernels round: the X table arrives as bf16 (the wrapper
-//    casts it once), each edge value is rounded to bf16, the dedup weight W[r, u] (the sum of
-//    a block's edges with that row and distinct column, consecutive slots in the packer's
-//    order) is rounded to bf16, and every product and sum is f32, where bf16 x bf16 is exact.
+//    casts it once), each edge value is rounded to bf16, the dedup weight W[r, u] (the f32 sum of
+//    a block's bf16-rounded values with that row and distinct column, consecutive slots in the
+//    packer's order) is rounded to bf16, and every product and sum is f32.
 //  * int8 mode follows the TPU int8 kernels: the wrapper quantises X per column
-//    (q = clip(round(X / s), +-127), s = max(max|X| / 127, 1e-12)), the kernels gather int8 rows
-//    (4 features per lane as one 32-bit load), round each edge value and the dedup weight W to
-//    bf16 whatever the bf16 flag says, and scale each finished sum, rounded to f32, by s. Where
-//    the TPU kernel sums in f32, these sum in f64: every product bf16 x int8 is exact, so the
-//    f64 sums are exact and do not depend on the order of the atomics. In f32 that order changes
-//    the last bit of a sum, which the next product's quantisation can turn into a whole int8
-//    step (and in the backward, where g is quantised per column, into a visible change of a
-//    gradient); in f64 the kernels and the plain version agree bit for bit and training in int8
-//    mode repeats exactly. Both kernels add into an f64 scratch that a second pass rounds and
-//    scales. The base kernel sums a row chunk in f64 registers (split rows add with f64
-//    atomics).
-//  * segment_spmm_dedup_int8 does not take kernel 2's shape, which in f64 would need four 8-byte
-//    global atomics per lane and edge. A CTA per (row window, group of the window's blocks,
-//    32-feature slice) keeps an [rb, 32] f64 tile of the window in shared memory. Per block it
-//    stages the block's slots and its <= ub distinct int8 row slices (32 B each) and marks each
-//    (row, column) run's first slot with W[r, u]; each warp owns the tile rows r with
+//    (q = clip(round(X / s), +-127), s = max(max|X| / 127, 1e-12)), the kernels gather int8 rows,
+//    round each edge value and the dedup weight W to bf16 whatever the bf16 flag says, and scale
+//    each finished sum, rounded to f32, by s. Where the TPU kernel sums in f32, these sum in f64:
+//    every product bf16 x int8 is exact, so the f64 sums are exact and do not depend on their
+//    order. In f32 that order changes the last bit of a sum, which the next product's
+//    quantisation can turn into a whole int8 step (and in the backward, where g is quantised per
+//    column, into a visible change of a gradient); in f64 the kernels and the plain version
+//    agree bit for bit and training in int8 mode repeats exactly. segment_spmm_rows_int8 is the
+//    base kernel on the int8 table writing every row of an f64 scratch, which a second pass
+//    rounds and scales.
+//  * segment_spmm_dedup_int8 (not redesigned yet): a CTA per (row window, group of the window's
+//    blocks, 32-feature slice) keeps an [rb, 32] f64 tile of the window in shared memory. Per
+//    block it stages the block's slots and its <= ub distinct int8 row slices (32 B each) and
+//    marks each (row, column) run's first slot with W[r, u]; each warp owns the tile rows r with
 //    r % 8 == warp and adds its runs' W[r, u] * q[u] across the 32 features, one feature per
-//    lane: plain shared loads and stores, no atomics (shared f64 atomics are compare-and-swap
-//    loops) and no bank conflicts. At the end the CTA adds its nonzero tile entries into the
-//    scratch, one f64 atomic each: rows x 32 per group of blocks, where kernel 2's shape issues
-//    one per edge and feature. A window with hub rows waits on the warps that own them.
+//    lane: plain shared loads and stores, no atomics and no bank conflicts. At the end the CTA
+//    adds its nonzero tile entries into the zeroed f64 scratch, one f64 atomic each. A window
+//    with hub rows waits on the warps that own them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -78,34 +90,60 @@ constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kWarpsPerCta = kThreads / kWarp;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kGather = 8;  // X rows a lane has in flight in the base kernel
 
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// A lane's share of an X row in the base kernel: kN features read as one Raw load, kGather such
+// loads in flight; add() multiplies them by an edge value into the accumulators; round() rounds
+// an edge value as the TPU kernel does.
 template <typename T>
-struct Elem;
+struct Vec;
 
-// load4: four features as float4; round: an edge value or dedup weight as the TPU kernel rounds
-// it; Acc: the type the base kernel sums in and writes
 template <>
-struct Elem<float> {
+struct Vec<float> {
+  static constexpr int kN = 4;
+  static constexpr int kGather = 4;  // X rows a team keeps in flight (a team is the whole warp)
+  static constexpr int kMinBlocks = 4;  // CTAs an SM holds: 64 registers a thread
+  using Raw = uint4;
   using Acc = float;
-  static __device__ __forceinline__ float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
+  static __device__ __forceinline__ Raw load(const float* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ void add(float (&acc)[kN], float v, const Raw& r) {
+    acc[0] = fmaf(v, __uint_as_float(r.x), acc[0]);
+    acc[1] = fmaf(v, __uint_as_float(r.y), acc[1]);
+    acc[2] = fmaf(v, __uint_as_float(r.z), acc[2]);
+    acc[3] = fmaf(v, __uint_as_float(r.w), acc[3]);
   }
   static __device__ __forceinline__ float round(float v) { return v; }
 };
 
+__device__ __forceinline__ float2 bf16x2(unsigned w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
 template <>
-struct Elem<__nv_bfloat16> {
+struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  static constexpr int kGather = 4;  // X rows a team keeps in flight (two teams a warp at d 128)
+  static constexpr int kMinBlocks = 4;
+  using Raw = uint4;
   using Acc = float;
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  static __device__ __forceinline__ Raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
   }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
+  static __device__ __forceinline__ void add(float (&acc)[kN], float v, const Raw& r) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = bf16x2(w[k]);
+      acc[2 * k] = fmaf(v, f.x, acc[2 * k]);
+      acc[2 * k + 1] = fmaf(v, f.y, acc[2 * k + 1]);
+    }
   }
+  static __device__ __forceinline__ float round(float v) { return bf16_round(v); }
 };
 
 // int8 table: the TPU int8 kernels contract bf16 edge values (and a bf16 W) with the int8 rows.
@@ -113,171 +151,602 @@ struct Elem<__nv_bfloat16> {
 // the same in any order) until a row's values span some 25 binades; the dequantise pass rounds
 // each sum to f32 once and scales it.
 template <>
-struct Elem<int8_t> {
+struct Vec<int8_t> {
+  static constexpr int kN = 8;
+  static constexpr int kGather = 4;
+  static constexpr int kMinBlocks = 4;
+  using Raw = uint2;
   using Acc = double;
-  static __device__ __forceinline__ float4 load4(const int8_t* p) {
-    const char4 q = *reinterpret_cast<const char4*>(p);
-    return make_float4(q.x, q.y, q.z, q.w);
+  static __device__ __forceinline__ Raw load(const int8_t* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
   }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16(v));
+  static __device__ __forceinline__ void add(double (&acc)[kN], float v, const Raw& r) {
+    const double dv = v;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      const unsigned w = k < 4 ? r.x : r.y;
+      const int q = static_cast<signed char>((w >> (8 * (k % 4))) & 0xffu);
+      acc[k] = fma(dv, static_cast<double>(q), acc[k]);
+    }
   }
+  static __device__ __forceinline__ float round(float v) { return bf16_round(v); }
 };
 
-__device__ __forceinline__ float fma_acc(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double fma_acc(double a, double b, double c) { return fma(a, b, c); }
-
-// o[0..4) = a (or += a, atomically): one float4 store or atomic, or four doubles
-__device__ __forceinline__ void put4(float* o, const float (&a)[4], bool add) {
-  const float4 v = make_float4(a[0], a[1], a[2], a[3]);
-  if (add) {
-    atomicAdd(reinterpret_cast<float4*>(o), v);
-  } else {
-    *reinterpret_cast<float4*>(o) = v;
-  }
+__device__ __forceinline__ void store(float* o, const float (&a)[4]) {
+  *reinterpret_cast<float4*>(o) = make_float4(a[0], a[1], a[2], a[3]);
 }
 
-__device__ __forceinline__ void put4(double* o, const double (&a)[4], bool add) {
-  if (add) {
+__device__ __forceinline__ void store(float* o, const float (&a)[8]) {
+  reinterpret_cast<float4*>(o)[0] = make_float4(a[0], a[1], a[2], a[3]);
+  reinterpret_cast<float4*>(o)[1] = make_float4(a[4], a[5], a[6], a[7]);
+}
+
+__device__ __forceinline__ void store(double* o, const double (&a)[8]) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) atomicAdd(o + k, a[k]);
-  } else {
-    reinterpret_cast<double2*>(o)[0] = make_double2(a[0], a[1]);
-    reinterpret_cast<double2*>(o)[1] = make_double2(a[2], a[3]);
+  for (int k = 0; k < 4; ++k) {
+    reinterpret_cast<double2*>(o)[k] = make_double2(a[2 * k], a[2 * k + 1]);
   }
 }
 
-// One warp per row chunk: the slots [chunk_start, chunk_end) of one row; chunk_row holds the row,
-// or ~row where the row spans several chunks. A row of one chunk is summed in registers and
-// stored once; the chunks of a longer row add into the zeroed output with atomics, so a hub row
-// of thousands of edges is spread over many warps.
+// acc += val * X[col] over the slots [s, e) of one row, the whole warp in lockstep: the warp
+// holds 32 slots' (col, val) at a time, one a lane (the first 32 come in my_col, my_val,
+// prefetched by the caller); team p of the warp's P takes the edges p * kGather + u of each
+// round of P * kGather and keeps its kGather row gathers in flight before their multiply-adds.
+// Each team adds its edges in slot order; reduce_teams then combines the teams in a fixed order.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) segment_spmm_rows_kernel(
-    const int* __restrict__ chunk_row, const int* __restrict__ chunk_start,
-    const int* __restrict__ chunk_end, const int* __restrict__ cols,
-    const float* __restrict__ vals, const T* __restrict__ x,
-    typename Elem<T>::Acc* __restrict__ out, int n_chunks, int d) {
-  using Acc = typename Elem<T>::Acc;
-  const int lane = threadIdx.x % kWarp;
-  const int w = blockIdx.x * kWarpsPerCta + threadIdx.x / kWarp;
-  if (w >= n_chunks) return;  // uniform over the warp
-  const int tagged = chunk_row[w];
-  const bool split = tagged < 0;
-  const int row = split ? ~tagged : tagged;
-  const int s = chunk_start[w];
-  const int e = chunk_end[w];
-  const int d4 = d / 4;
-  for (int c0 = 0; c0 < d4; c0 += kWarp) {
-    const int c = c0 + lane;
-    const bool active = c < d4;
-    Acc acc[4] = {0, 0, 0, 0};
-    for (int t0 = s; t0 < e; t0 += kWarp) {
+__device__ __forceinline__ void row_sum(const int* __restrict__ cols,
+                                        const float* __restrict__ vals,
+                                        const T* __restrict__ x, int s, int e, int d, int feat,
+                                        int lane, int step, int team_off, int my_col,
+                                        float my_val, typename Vec<T>::Acc (&acc)[Vec<T>::kN]) {
+  using V = Vec<T>;
+  constexpr int kGather = V::kGather;
+  const bool active = feat < d;
+  for (int t0 = s; t0 < e; t0 += kWarp) {
+    if (t0 != s) {
       const int t = t0 + lane;
-      int my_col = 0;
-      float my_val = 0.f;
-      if (t < e) {
-        my_col = cols[t];
-        my_val = Elem<T>::round(vals[t]);
+      my_col = t < e ? __ldg(cols + t) : 0;
+      my_val = t < e ? V::round(__ldg(vals + t)) : 0.f;
+    }
+    const int n = min(kWarp, e - t0);
+    for (int r0 = 0; r0 < n; r0 += step) {
+      typename V::Raw raw[kGather] = {};
+#pragma unroll
+      for (int u = 0; u < kGather; ++u) {
+        const int j = r0 + team_off + u;
+        const int col = __shfl_sync(kFull, my_col, j & (kWarp - 1));
+        if (active && j < n) raw[u] = V::load(x + static_cast<int64_t>(col) * d + feat);
       }
-      const int n = min(kWarp, e - t0);
-      // kGather independent row loads in flight per lane before their multiply-adds
-      for (int j0 = 0; j0 < n; j0 += kGather) {
-        float4 xv[kGather];
-        float v[kGather];
 #pragma unroll
-        for (int u = 0; u < kGather; ++u) {
-          const int j = j0 + u;  // < 32: j0 <= 32 - kGather
-          const int col = __shfl_sync(kFull, my_col, j);
-          v[u] = __shfl_sync(kFull, my_val, j);
-          xv[u] = (active && j < n)
-                      ? Elem<T>::load4(x + static_cast<int64_t>(col) * d + 4 * c)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-        for (int u = 0; u < kGather; ++u) {
-          acc[0] = fma_acc(Acc(v[u]), Acc(xv[u].x), acc[0]);
-          acc[1] = fma_acc(Acc(v[u]), Acc(xv[u].y), acc[1]);
-          acc[2] = fma_acc(Acc(v[u]), Acc(xv[u].z), acc[2]);
-          acc[3] = fma_acc(Acc(v[u]), Acc(xv[u].w), acc[3]);
-        }
+      for (int u = 0; u < kGather; ++u) {
+        const int j = r0 + team_off + u;
+        const float v = __shfl_sync(kFull, my_val, j & (kWarp - 1));
+        if (active && j < n) V::add(acc, v, raw[u]);
       }
     }
-    if (active) put4(out + static_cast<int64_t>(row) * d + 4 * c, acc, split);
   }
 }
 
-// One CTA per edge block: stage the block's distinct X rows, then atomically add
-// W[r, u] * Xs[u] into the window's output rows.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) segment_spmm_dedup_kernel(
-    const int* __restrict__ wmap, const int* __restrict__ lrows, const int* __restrict__ lcols,
-    const int* __restrict__ ucols, const float* __restrict__ vals, const T* __restrict__ x,
-    float* __restrict__ out, int eb, int rb, int ub, int d) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);
-  __shared__ int n_unique;
+// the teams' sums added across the warp (lanes G, 2G, ... apart), the same tree every call
+template <typename A, int N>
+__device__ __forceinline__ void reduce_teams(A (&acc)[N], int G) {
+  for (int off = G; off < kWarp; off <<= 1) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) acc[k] += __shfl_xor_sync(kFull, acc[k], off);
+  }
+}
 
-  const int b = blockIdx.x;
-  const int* lr = lrows + static_cast<int64_t>(b) * eb;
-  const int* lc = lcols + static_cast<int64_t>(b) * eb;
-  const float* v = vals + static_cast<int64_t>(b) * eb;
-  const int* uc = ucols + static_cast<int64_t>(b) * ub;
+// The base kernel (see the header). CTA c's warp w takes the rows [warp_rows[c][w],
+// warp_rows[c][w + 1]) (at most 32); a CTA whose warp 0 holds one row of more than
+// `row_slots` slots is a hub CTA, whose 8 warps each sum an eighth of that row. Row r's slots
+// are the flat range [row_start[r], row_end[r]) of the [n_blocks * eb] slot arrays.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, Vec<T>::kMinBlocks) segment_spmm_rows_kernel(
+    const int* __restrict__ warp_rows, const int* __restrict__ row_start,
+    const int* __restrict__ row_end, const int* __restrict__ cols, const float* __restrict__ vals,
+    const T* __restrict__ x, typename Vec<T>::Acc* __restrict__ out, int d, int lanes_log2,
+    int row_slots) {
+  using V = Vec<T>;
+  using Acc = typename V::Acc;
+  constexpr int kN = V::kN;
+  __shared__ Acc part[kThreads * kN];  // a hub row's per-warp sums, [8, G * kN]
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
+  const int G = 1 << lanes_log2;  // lanes a team spreads one X row over
+  const int q = lane & (G - 1);
+  const int step = (kWarp >> lanes_log2) * V::kGather;
+  const int team_off = (lane >> lanes_log2) * V::kGather;
+  const int fw = G * kN;  // features one pass covers
+  const int* wr = warp_rows + blockIdx.x * (kWarpsPerCta + 1);  // this CTA's warps' rows
+  const int first = wr[0];
 
-  // distinct columns in use: 1 + the largest local column of a live slot
-  if (threadIdx.x == 0) n_unique = 0;
-  __syncthreads();
-  int top = 0;
-  for (int e = threadIdx.x; e < eb; e += kThreads) {
-    if (lr[e] < rb) top = max(top, lc[e] + 1);
+  if (wr[1] == first + 1 && row_end[first] - row_start[first] > row_slots) {
+    // hub CTA: warp w sums the w-th eighth of the row; the warps' sums meet in shared memory
+    const int s = row_start[first];
+    const int len = row_end[first] - s;
+    const int ws = s + static_cast<int>(static_cast<int64_t>(len) * warp / kWarpsPerCta);
+    const int we = s + static_cast<int>(static_cast<int64_t>(len) * (warp + 1) / kWarpsPerCta);
+    for (int c0 = 0; c0 < d; c0 += fw) {
+      const int feat = c0 + q * kN;
+      const int t = ws + lane;
+      Acc acc[kN] = {};
+      row_sum<T>(cols, vals, x, ws, we, d, feat, lane, step, team_off,
+                 t < we ? __ldg(cols + t) : 0, t < we ? V::round(__ldg(vals + t)) : 0.f, acc);
+      reduce_teams(acc, G);
+      if (lane < G) {
+#pragma unroll
+        for (int k = 0; k < kN; ++k) part[warp * fw + q * kN + k] = acc[k];
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < fw && c0 + i < d; i += kThreads) {
+        Acc sum = part[i];
+        for (int k = 1; k < kWarpsPerCta; ++k) sum += part[k * fw + i];
+        out[static_cast<int64_t>(first) * d + c0 + i] = sum;
+      }
+      __syncthreads();
+    }
+    return;
   }
-  for (int o = kWarp / 2; o > 0; o /= 2) top = max(top, __shfl_xor_sync(kFull, top, o));
-  if (lane == 0) atomicMax(&n_unique, top);
-  __syncthreads();
 
-  // stage X[ucols[u]] for u < n_unique, 16 bytes per thread and step
-  const int vecs = d * static_cast<int>(sizeof(T)) / 16;
-  const int n_vec = n_unique * vecs;
-  for (int i = threadIdx.x; i < n_vec; i += kThreads) {
-    const int u = i / vecs;
-    reinterpret_cast<uint4*>(xs)[i] =
-        reinterpret_cast<const uint4*>(x + static_cast<int64_t>(uc[u]) * d)[i - u * vecs];
+  // the warp's rows one after another, each summed by the whole warp; the next row's first
+  // slots load while this row's gathers are in flight
+  const int lo = wr[warp];
+  const int nr = wr[warp + 1] - lo;
+  const int my_s = lane < nr ? row_start[lo + lane] : 0;  // row lo + lane's slot range
+  const int my_e = lane < nr ? row_end[lo + lane] : 0;
+  for (int c0 = 0; c0 < d; c0 += fw) {
+    const int feat = c0 + q * kN;
+    int s = __shfl_sync(kFull, my_s, 0);
+    int e = __shfl_sync(kFull, my_e, 0);
+    int pc = 0;
+    float pv = 0.f;
+    if (nr > 0 && s + lane < e) {
+      pc = __ldg(cols + s + lane);
+      pv = V::round(__ldg(vals + s + lane));
+    }
+    for (int i = 0; i < nr; ++i) {
+      const int cs = s, ce = e, my_col = pc;
+      const float my_val = pv;
+      if (i + 1 < nr) {
+        s = __shfl_sync(kFull, my_s, i + 1);
+        e = __shfl_sync(kFull, my_e, i + 1);
+        pc = s + lane < e ? __ldg(cols + s + lane) : 0;
+        pv = s + lane < e ? V::round(__ldg(vals + s + lane)) : 0.f;
+      }
+      Acc acc[kN] = {};
+      row_sum<T>(cols, vals, x, cs, ce, d, feat, lane, step, team_off, my_col, my_val, acc);
+      reduce_teams(acc, G);
+      if (lane < G && feat < d) store(out + static_cast<int64_t>(lo + i) * d + feat, acc);
+    }
   }
-  __syncthreads();
+}
 
-  const int d4 = d / 4;
-  float* out_w = out + static_cast<int64_t>(wmap[b]) * rb * d;
-  for (int t0 = warp * kWarp; t0 < eb; t0 += kThreads) {
-    const int e = t0 + lane;
-    int r = rb;  // rb = no work for this lane
-    int u = 0;
-    float w = 0.f;
-    if (e < eb && lr[e] < rb) {
-      const int er = lr[e];
-      const int ec = lc[e];
-      // the first slot of a (row, column) run sums the run: W[r, u]
-      if (e == 0 || lr[e - 1] != er || lc[e - 1] != ec) {
+// ---- the dedup kernel (see the header): grid (n_parts, feature slices) ----
+constexpr int kDedupWarps = 16;
+constexpr int kDedupThreads = kDedupWarps * kWarp;
+constexpr int kRowsPerWarp = 16;  // warp w sums the window rows s * 16 + w, s < 16 (rb <= 256)
+constexpr int kGroups = kDedupWarps * kRowsPerWarp;  // (warp, s) groups of a block's slots
+constexpr int kMetaWidth = kGroups + 2;  // block_meta row: kGroups + 1 offsets, then n_unique
+constexpr int kMetaPad = 260;            // ints the staged meta row takes (16-byte multiple)
+
+constexpr int kF32PerLane = 2;  // features a lane of the f32 kernel sums: 64 a CTA
+
+__device__ __forceinline__ void load_feats(const float* p, float (&f)[2]) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+}
+__device__ __forceinline__ void store_feats(float* p, const float (&a)[2]) {
+  *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// bytes of one f32 CTA's shared memory (the wrapper's _dedup_smem mirrors it): two data stages
+// (the block's [ub, 64] X row slices, its ordered codes and values), three index stages (its
+// meta row, ucols and ordered flat slots) and the run weights W of the block being summed.
+__host__ __device__ constexpr size_t dedup_smem_bytes(int eb, int ub) {
+  return 2 * (static_cast<size_t>(ub) * kWarp * kF32PerLane * 4 + static_cast<size_t>(eb) * 8) +
+         3 * static_cast<size_t>(kMetaPad + ub + eb) * 4 + static_cast<size_t>(eb) * 4;
+}
+
+// the rows of split windows: out = the sum of their parts' tiles, in part order
+__global__ void __launch_bounds__(kThreads) segment_spmm_dedup_sum_parts_kernel(
+    const float4* __restrict__ scratch, const int* __restrict__ window_parts,
+    float4* __restrict__ out, int nrows, int rb, int d4) {
+  const int64_t n4 = static_cast<int64_t>(nrows) * d4;
+  const int64_t tile4 = static_cast<int64_t>(rb) * d4;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n4; i += stride) {
+    const int r = static_cast<int>(i / d4);
+    const int w = r / rb;
+    const int p0 = window_parts[w];
+    const int p1 = window_parts[w + 1];
+    if (p1 - p0 < 2) continue;  // written by the window's only part
+    const int64_t off = i - static_cast<int64_t>(w) * tile4;
+    float4 s = scratch[p0 * tile4 + off];
+    for (int p = p0 + 1; p < p1; ++p) {
+      const float4 v = scratch[p * tile4 + off];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    out[i] = s;
+  }
+}
+
+// order_rc[b, i] = (local row << 16) | local column of block b's i-th live slot in the order
+// (row % 16, row, slot), order_slot[b, i] its flat slot (for the runtime values); block_meta[b]
+// = the offsets of the groups k = (row % 16) * 16 + row / 16 in that order, then n_unique.
+// Part p takes the blocks [part_blocks[p], part_blocks[p + 1]) of window part_window[p]; window
+// w's parts are [window_parts[w], window_parts[w + 1]).
+__global__ void __launch_bounds__(kDedupThreads, 1) segment_spmm_dedup_kernel(
+    const int* __restrict__ part_window, const int* __restrict__ part_blocks,
+    const int* __restrict__ window_parts, const int* __restrict__ ucols,
+    const int* __restrict__ order_rc, const int* __restrict__ order_slot,
+    const int* __restrict__ block_meta, const float* __restrict__ vals,
+    const float* __restrict__ x, float* __restrict__ out, float* __restrict__ scratch, int nrows,
+    int eb, int rb, int ub, int d) {
+  using T = float;
+  constexpr int kF = kF32PerLane;
+  constexpr int kS = kWarp * kF;  // features per CTA
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t xs_b = static_cast<size_t>(ub) * kS * sizeof(T);
+  const size_t data_b = xs_b + static_cast<size_t>(eb) * 8;
+  const size_t idx_b = static_cast<size_t>(kMetaPad + ub + eb) * 4;
+  unsigned char* const idx0 = smem + 2 * data_b;
+  float* const s_w = reinterpret_cast<float*>(idx0 + 3 * idx_b);
+  auto xs_of = [&](int k) { return reinterpret_cast<T*>(smem + k * data_b); };
+  auto rc_of = [&](int k) { return reinterpret_cast<int*>(smem + k * data_b + xs_b); };
+  auto v_of = [&](int k) { return reinterpret_cast<float*>(rc_of(k) + eb); };
+  auto idx_of = [&](int k) { return reinterpret_cast<int*>(idx0 + k * idx_b); };
+
+  const int part = blockIdx.x;
+  const int win = part_window[part];
+  const int c0 = blockIdx.y * kS;
+  const int width = min(kS, d - c0);
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int b0 = part_blocks[part];
+  const int b1 = part_blocks[part + 1];
+
+  // block b's meta row, ucols and ordered slots into index stage k
+  auto stage_idx = [&](int b, int k) {
+    int* dst = idx_of(k);
+    for (int i = threadIdx.x; i < kMetaWidth; i += kDedupThreads) {
+      cp_async4(dst + i, block_meta + static_cast<int64_t>(b) * kMetaWidth + i);
+    }
+    for (int i = threadIdx.x; i < ub; i += kDedupThreads) {
+      cp_async4(dst + kMetaPad + i, ucols + static_cast<int64_t>(b) * ub + i);
+    }
+    for (int i = threadIdx.x; i < eb; i += kDedupThreads) {
+      cp_async4(dst + kMetaPad + ub + i, order_slot + static_cast<int64_t>(b) * eb + i);
+    }
+  };
+  // block b's X row slices, codes and values into data stage k, from its landed index stage ki
+  auto stage_data = [&](int b, int k, int ki) {
+    const int* id = idx_of(ki);
+    const int n = id[kGroups];
+    const int nu = id[kGroups + 1];
+    const int vecs = width * static_cast<int>(sizeof(T)) / 16;
+    unsigned char* xs = reinterpret_cast<unsigned char*>(xs_of(k));
+#pragma unroll 4
+    for (int i = threadIdx.x; i < nu * vecs; i += kDedupThreads) {
+      const int u = i / vecs;
+      const int v = i - u * vecs;
+      const T* src = x + static_cast<int64_t>(id[kMetaPad + u]) * d + c0;
+      cp_async16(xs + static_cast<size_t>(u) * kS * sizeof(T) + 16 * v,
+                 reinterpret_cast<const unsigned char*>(src) + 16 * v);
+    }
+    int* rc = rc_of(k);
+    float* vs = v_of(k);
+    for (int i = threadIdx.x; i < n; i += kDedupThreads) {
+      cp_async4(rc + i, order_rc + static_cast<int64_t>(b) * eb + i);
+      cp_async4(vs + i, vals + id[kMetaPad + ub + i]);
+    }
+  };
+
+  float acc[kRowsPerWarp][kF] = {};  // the sums of the warp's rows s * 16 + warp
+  if (b0 < b1) {
+    stage_idx(b0, 0);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    stage_data(b0, 0, 0);
+    if (b0 + 1 < b1) stage_idx(b0 + 1, 1);
+    cp_async_commit();
+  }
+  for (int b = b0; b < b1; ++b) {
+    const int k = (b - b0) & 1;
+    const int ki = (b - b0) % 3;
+    cp_async_wait_all();
+    __syncthreads();  // block b's data and block b + 1's indices landed; block b - 1 is done
+    if (b + 1 < b1) {
+      stage_data(b + 1, k ^ 1, (ki + 1) % 3);
+      if (b + 2 < b1) stage_idx(b + 2, (ki + 2) % 3);
+      cp_async_commit();
+    }
+    const int* id = idx_of(ki);
+    const int* rcs = rc_of(k);
+    const float* vs = v_of(k);
+    // W[r, u] at the last slot of each (row, column) run: the run's bf16-rounded values summed
+    // in slot order, then rounded; 0 at the run's other slots
+    const int n = id[kGroups];
+    for (int i = threadIdx.x; i < n; i += kDedupThreads) {
+      const int code = rcs[i];
+      float w = 0.f;
+      if (i + 1 == n || rcs[i + 1] != code) {
+        int j = i;
+        while (j > 0 && rcs[j - 1] == code) --j;
         float sum = 0.f;
-        for (int j = e; j < eb && lr[j] == er && lc[j] == ec; ++j) sum += Elem<T>::round(v[j]);
-        r = er;
-        u = ec;
-        w = Elem<T>::round(sum);
+        for (; j <= i; ++j) sum += vs[j];
+        w = sum;
+      }
+      s_w[i] = w;
+    }
+    __syncthreads();
+    // the warp's 16 row groups: offsets and 32 edges at a time held in lanes and broadcast by
+    // shuffles; per edge one shared load of the staged row and kF multiply-adds
+    const int my_off = id[warp * kRowsPerWarp + min(lane, kRowsPerWarp)];
+    const int first = __shfl_sync(kFull, my_off, 0);
+    const int last = __shfl_sync(kFull, my_off, kRowsPerWarp);
+    const T* xk = xs_of(k) + kF * lane;
+    for (int t0 = first; t0 < last; t0 += kWarp) {
+      const bool live = t0 + lane < last;
+      const int my_u = live ? (rcs[t0 + lane] & 0xffff) * kS : 0;
+      const float my_w = live ? s_w[t0 + lane] : 0.f;
+#pragma unroll
+      for (int s = 0; s < kRowsPerWarp; ++s) {
+        const int j0 = max(__shfl_sync(kFull, my_off, s) - t0, 0);
+        const int j1 = min(__shfl_sync(kFull, my_off, s + 1) - t0, kWarp);
+        for (int j = j0; j < j1; ++j) {
+          const int u = __shfl_sync(kFull, my_u, j);
+          const float w = __shfl_sync(kFull, my_w, j);
+          float xv[kF];
+          load_feats(xk + u, xv);
+          if (w != 0.f) {
+#pragma unroll
+            for (int f = 0; f < kF; ++f) acc[s][f] = fmaf(w, xv[f], acc[s][f]);
+          }
+        }
       }
     }
-    unsigned todo = __ballot_sync(kFull, r < rb);
-    while (todo) {
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int rj = __shfl_sync(kFull, r, j);
-      const int uj = __shfl_sync(kFull, u, j);
-      const float wj = __shfl_sync(kFull, w, j);
-      float* orow = out_w + static_cast<int64_t>(rj) * d;
-      const T* xrow = xs + static_cast<int64_t>(uj) * d;
-      for (int c = lane; c < d4; c += kWarp) {
-        const float4 xv = Elem<T>::load4(xrow + 4 * c);
-        atomicAdd(reinterpret_cast<float4*>(orow + 4 * c),
-                  make_float4(wj * xv.x, wj * xv.y, wj * xv.z, wj * xv.w));
+  }
+
+  // the part's rows: into the output where the window is one part, else into its scratch tile
+  const int rows = min(rb, nrows - win * rb);
+  float* dst = window_parts[win + 1] - window_parts[win] == 1
+                   ? out + static_cast<int64_t>(win) * rb * d
+                   : scratch + static_cast<int64_t>(part) * rb * d;
+  if (kF * lane < width) {
+#pragma unroll
+    for (int s = 0; s < kRowsPerWarp; ++s) {
+      const int r = s * kDedupWarps + warp;
+      if (r < rows) store_feats(dst + static_cast<int64_t>(r) * d + c0 + kF * lane, acc[s]);
+    }
+  }
+}
+
+// ---- the bf16 dedup kernel on the tensor cores: per block W[rb, 16-column chunk] x X ----
+constexpr int kMmaSlice = 128;             // features per CTA
+constexpr int kXsStride = kMmaSlice + 8;   // staged row stride (bf16): 272 B, no bank conflicts
+constexpr int kWide = 64;                  // distinct columns a W tile holds (4 mma k-steps)
+constexpr int kWStride = kWide + 8;        // W tile row stride (bf16): 144 B, no bank conflicts
+constexpr int kChunk = 16;                 // the mma's k
+constexpr int kIdxInts = 4;                // staged meta ints before a block's ucols
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p, bool trans) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if (trans) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+  } else {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+  }
+}
+
+// c += a (16 x 16 bf16, row) x b (16 x 8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bytes of the bf16 kernel's shared memory (the wrapper's _dedup_smem mirrors it): two data
+// stages (the block's [ub, 136] bf16 row slices; its ordered codes and values), three index
+// stages (its meta row, ucols and ordered flat slots) and the warps' [16, 64] bf16 W tiles
+__host__ __device__ constexpr size_t mma_smem_bytes(int eb, int ub) {
+  return 2 * (static_cast<size_t>(ub) * kXsStride * 2 + static_cast<size_t>(eb) * 8) +
+         3 * static_cast<size_t>(kMetaPad + ub + eb) * 4 +
+         static_cast<size_t>(kGroups) * kWStride * 2;
+}
+
+// The bf16 dedup kernel: grid (n_parts, ceil(d / 128)). It stages blocks as the f32 kernel does
+// (the block's slots in the order (row % 16, row, slot), so warp w's slots, those of the rows
+// r % 16 == w, are consecutive). Warp w keeps the [16, 128] f32 sums of its rows 16 i + w as mma
+// accumulators. Per block and 64 distinct columns, the warp writes its rows' W[r, u] (each
+// (row, column) run's values rounded, summed and rounded, at the run's last slot) into its own
+// [16, 64] bf16 W tile in shared memory (tile row i = window row 16 i + w), then per 16 columns
+// runs 16 mma.sync of the tile against the staged X rows: one CTA-wide barrier a block. Needs
+// eb and ub multiples of 4 (16-byte copies) and ub <= 256.
+__global__ void __launch_bounds__(kDedupThreads, 1) segment_spmm_dedup_mma_kernel(
+    const int* __restrict__ part_window, const int* __restrict__ part_blocks,
+    const int* __restrict__ window_parts, const int* __restrict__ ucols,
+    const int* __restrict__ order_rc, const int* __restrict__ order_slot,
+    const int* __restrict__ block_meta, const float* __restrict__ vals,
+    const __nv_bfloat16* __restrict__ x, float* __restrict__ out, float* __restrict__ scratch,
+    int nrows, int eb, int rb, int ub, int d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t xs_b = static_cast<size_t>(ub) * kXsStride * 2;
+  const size_t data_b = xs_b + static_cast<size_t>(eb) * 8;
+  const size_t idx_b = static_cast<size_t>(kMetaPad + ub + eb) * 4;
+  unsigned char* const idx0 = smem + 2 * data_b;
+  __nv_bfloat16* const wt = reinterpret_cast<__nv_bfloat16*>(idx0 + 3 * idx_b);
+  auto xs_of = [&](int k) { return reinterpret_cast<__nv_bfloat16*>(smem + k * data_b); };
+  auto rc_of = [&](int k) { return reinterpret_cast<int*>(smem + k * data_b + xs_b); };
+  auto v_of = [&](int k) { return reinterpret_cast<float*>(rc_of(k) + eb); };
+  auto idx_of = [&](int k) { return reinterpret_cast<int*>(idx0 + k * idx_b); };
+
+  const int part = blockIdx.x;
+  const int win = part_window[part];
+  const int c0 = blockIdx.y * kMmaSlice;
+  const int width = min(kMmaSlice, d - c0);
+  const int n_tiles = (width + 7) / 8;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int b0 = part_blocks[part];
+  const int b1 = part_blocks[part + 1];
+
+  // block b's meta row, ucols and ordered slots into index stage k
+  auto stage_idx = [&](int b, int k) {
+    int* dst = idx_of(k);
+    const int* meta = block_meta + static_cast<int64_t>(b) * kMetaWidth;  // 8-byte aligned
+    for (int i = threadIdx.x; i < kMetaWidth / 2; i += kDedupThreads) {
+      cp_async8(dst + 2 * i, meta + 2 * i);
+    }
+    for (int i = threadIdx.x; i < ub / 4; i += kDedupThreads) {
+      cp_async16(dst + kMetaPad + 4 * i, ucols + static_cast<int64_t>(b) * ub + 4 * i);
+    }
+    for (int i = threadIdx.x; i < eb / 4; i += kDedupThreads) {
+      cp_async16(dst + kMetaPad + ub + 4 * i, order_slot + static_cast<int64_t>(b) * eb + 4 * i);
+    }
+  };
+  // block b's X rows (zeros up to a whole k-step), codes and values into data stage k, from its
+  // landed index stage ki
+  auto stage_data = [&](int b, int k, int ki) {
+    const int* id = idx_of(ki);
+    const int n = id[kGroups];
+    const int nu = id[kGroups + 1];
+    const int vecs = width * 2 / 16;
+    unsigned char* xs = reinterpret_cast<unsigned char*>(xs_of(k));
+#pragma unroll 4
+    for (int i = threadIdx.x; i < nu * vecs; i += kDedupThreads) {
+      const int u = i / vecs;
+      const int v = i - u * vecs;
+      const __nv_bfloat16* src = x + static_cast<int64_t>(id[kMetaPad + u]) * d + c0;
+      cp_async16(xs + static_cast<size_t>(u) * kXsStride * 2 + 16 * v,
+                 reinterpret_cast<const unsigned char*>(src) + 16 * v);
+    }
+    const int nu16 = (nu + kChunk - 1) / kChunk * kChunk;
+    for (int i = threadIdx.x; i < (nu16 - nu) * (kXsStride / 8); i += kDedupThreads) {
+      reinterpret_cast<uint4*>(xs + static_cast<size_t>(nu) * kXsStride * 2)[i] =
+          make_uint4(0, 0, 0, 0);
+    }
+    for (int i = threadIdx.x; i < (n + 3) / 4; i += kDedupThreads) {
+      cp_async16(rc_of(k) + 4 * i, order_rc + static_cast<int64_t>(b) * eb + 4 * i);
+    }
+    float* vs = v_of(k);
+    for (int i = threadIdx.x; i < n; i += kDedupThreads) {
+      cp_async4(vs + i, vals + id[kMetaPad + ub + i]);
+    }
+  };
+
+  float acc[kMmaSlice / 8][4] = {};  // n-tile t: rows 16 (lane / 4) + w (and + 128), ...
+  __nv_bfloat16* mw = wt + warp * 16 * kWStride;  // this warp's [16, 64] W tile
+  if (b0 < b1) {
+    stage_idx(b0, 0);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    stage_data(b0, 0, 0);
+    if (b0 + 1 < b1) stage_idx(b0 + 1, 1);
+    cp_async_commit();
+  }
+  for (int b = b0; b < b1; ++b) {
+    const int k = (b - b0) & 1;
+    const int ki = (b - b0) % 3;
+    cp_async_wait_all();
+    __syncthreads();  // block b's data and block b + 1's indices landed; block b - 1 is done
+    if (b + 1 < b1) {
+      stage_data(b + 1, k ^ 1, (ki + 1) % 3);
+      if (b + 2 < b1) stage_idx(b + 2, (ki + 2) % 3);
+      cp_async_commit();
+    }
+    const int* id = idx_of(ki);
+    const int nu = id[kGroups + 1];
+    const int o0 = id[warp * kRowsPerWarp];
+    const int o1 = id[(warp + 1) * kRowsPerWarp];
+    const int* rcs = rc_of(k);
+    const float* vs = v_of(k);
+    const __nv_bfloat16* xs = xs_of(k);
+    for (int kw = 0; kw * kWide < nu; ++kw) {
+      for (int i = lane; i < 16 * (kWide / 8); i += kWarp) {
+        reinterpret_cast<uint4*>(mw + (i / (kWide / 8)) * kWStride)[i % (kWide / 8)] =
+            make_uint4(0, 0, 0, 0);
+      }
+      __syncwarp();
+      // the warp's runs with a column in [64 kw, 64 kw + 64): W at (row / 16, column - 64 kw)
+      for (int i = o0 + lane; i < o1; i += kWarp) {
+        const int code = rcs[i];
+        const int c = (code & 0xffff) - kw * kWide;
+        if (c >= 0 && c < kWide && (i + 1 == o1 || rcs[i + 1] != code)) {
+          int j = i;
+          while (j > o0 && rcs[j - 1] == code) --j;
+          float sum = 0.f;
+          for (; j <= i; ++j) sum += bf16_round(vs[j]);
+          mw[((code >> 16) / kDedupWarps) * kWStride + c] = __float2bfloat16(sum);
+        }
+      }
+      __syncwarp();
+      const int steps = min(kWide, nu - kw * kWide + kChunk - 1) / kChunk;
+      for (int ks = 0; ks < steps; ++ks) {
+        unsigned a[4];
+        ldsm_x4(a, mw + (lane & 15) * kWStride + ks * kChunk + (lane >> 4) * 8, false);
+        const __nv_bfloat16* xrow =
+            xs + (kw * kWide + ks * kChunk + (lane & 15)) * kXsStride + (lane >> 4) * 8;
+#pragma unroll
+        for (int t = 0; t < kMmaSlice / 8; t += 2) {
+          if (t < n_tiles) {
+            unsigned bq[4];
+            ldsm_x4(bq, xrow + t * 8, true);
+            mma_bf16(acc[t], a, bq[0], bq[1]);
+            mma_bf16(acc[t + 1], a, bq[2], bq[3]);
+          }
+        }
+      }
+      __syncwarp();  // the tile is read before the next one is written
+    }
+  }
+
+  // the part's rows: into the output where the window is one part, else into its scratch tile
+  const int rows = min(rb, nrows - win * rb);
+  float* dst = window_parts[win + 1] - window_parts[win] == 1
+                   ? out + static_cast<int64_t>(win) * rb * d
+                   : scratch + static_cast<int64_t>(part) * rb * d;
+  const int r_lo = (lane / 4) * kDedupWarps + warp;  // this lane's rows r_lo, r_lo + 128
+  const int f_lo = (lane % 4) * 2;                   // and features 8 t + f_lo, + 1
+#pragma unroll
+  for (int t = 0; t < kMmaSlice / 8; ++t) {
+    if (8 * t + f_lo < width) {
+      if (r_lo < rows) {
+        *reinterpret_cast<float2*>(dst + static_cast<int64_t>(r_lo) * d + c0 + 8 * t + f_lo) =
+            make_float2(acc[t][0], acc[t][1]);
+      }
+      if (r_lo + 8 * kDedupWarps < rows) {
+        *reinterpret_cast<float2*>(dst + static_cast<int64_t>(r_lo + 8 * kDedupWarps) * d + c0 +
+                                   8 * t + f_lo) = make_float2(acc[t][2], acc[t][3]);
       }
     }
   }
@@ -358,10 +827,10 @@ __global__ void __launch_bounds__(kThreads) segment_spmm_dedup_int8_kernel(
       if (er < rb && (e == 0 || s_lr[e - 1] != er || s_lc[e - 1] != ec)) {
         float sum = 0.f;
         for (int j = e; j < eb && s_lr[j] == er && s_lc[j] == ec; ++j) {
-          sum += Elem<int8_t>::round(s_v[j]);
+          sum += bf16_round(s_v[j]);
         }
         head = er;
-        w = Elem<int8_t>::round(sum);
+        w = bf16_round(sum);
       }
       s_head[e] = head;
       s_w[e] = w;
@@ -388,28 +857,51 @@ __global__ void __launch_bounds__(kThreads) segment_spmm_dedup_int8_kernel(
 }
 
 template <typename T>
-int launch_rows(const int* chunk_row, const int* chunk_start, const int* chunk_end,
-                const int* cols, const float* vals, const void* x, typename Elem<T>::Acc* out,
-                int n_chunks, int d, cudaStream_t stream) {
-  if (n_chunks <= 0) return 0;
-  const int grid = (n_chunks + kWarpsPerCta - 1) / kWarpsPerCta;
-  segment_spmm_rows_kernel<T><<<grid, kThreads, 0, stream>>>(
-      chunk_row, chunk_start, chunk_end, cols, vals, static_cast<const T*>(x), out, n_chunks, d);
+int launch_rows(const int* warp_rows, const int* row_start, const int* row_end, const int* cols,
+                const float* vals, const void* x, typename Vec<T>::Acc* out, int n_ctas, int d,
+                int lanes_log2, int row_slots, cudaStream_t stream) {
+  if (n_ctas <= 0) return 0;
+  segment_spmm_rows_kernel<T><<<n_ctas, kThreads, 0, stream>>>(
+      warp_rows, row_start, row_end, cols, vals, static_cast<const T*>(x), out, d, lanes_log2,
+      row_slots);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_dedup(const int* wmap, const int* lrows, const int* lcols, const int* ucols,
-                 const float* vals, const void* x, float* out, int n_blocks, int eb, int rb,
-                 int ub, int d, cudaStream_t stream) {
-  if (n_blocks <= 0) return 0;
-  const int smem = ub * d * static_cast<int>(sizeof(T));
-  const cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(segment_spmm_dedup_kernel<T>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  segment_spmm_dedup_kernel<T><<<n_blocks, kThreads, smem, stream>>>(
-      wmap, lrows, lcols, ucols, vals, static_cast<const T*>(x), out, eb, rb, ub, d);
+int launch_dedup(const int* part_window, const int* part_blocks, const int* window_parts,
+                 const int* ucols, const int* order_rc, const int* order_slot,
+                 const int* block_meta, const float* vals, const void* x,
+                 float* out, float* scratch, int n_parts, int n_windows, int nrows, int eb,
+                 int rb, int ub, int d, cudaStream_t stream) {
+  if (n_parts <= 0 || nrows <= 0) return 0;
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int kS = kMma ? kMmaSlice : kWarp * kF32PerLane;
+  const dim3 grid(n_parts, (d + kS - 1) / kS);
+  cudaError_t err;
+  if constexpr (kMma) {
+    const int smem = static_cast<int>(mma_smem_bytes(eb, ub));
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(segment_spmm_dedup_mma_kernel),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    segment_spmm_dedup_mma_kernel<<<grid, kDedupThreads, smem, stream>>>(
+        part_window, part_blocks, window_parts, ucols, order_rc, order_slot, block_meta, vals,
+        static_cast<const __nv_bfloat16*>(x), out, scratch, nrows, eb, rb, ub, d);
+  } else {
+    const int smem = static_cast<int>(dedup_smem_bytes(eb, ub));
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(segment_spmm_dedup_kernel),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    segment_spmm_dedup_kernel<<<grid, kDedupThreads, smem, stream>>>(
+        part_window, part_blocks, window_parts, ucols, order_rc, order_slot, block_meta, vals,
+        static_cast<const float*>(x), out, scratch, nrows, eb, rb, ub, d);
+  }
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || n_parts == n_windows) return rc;  // no window was split
+  const int64_t n4 = static_cast<int64_t>(nrows) * d / 4;
+  const int blocks = static_cast<int>(std::min<int64_t>((n4 + kThreads - 1) / kThreads, 132 * 8));
+  segment_spmm_dedup_sum_parts_kernel<<<blocks, kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(scratch), window_parts, reinterpret_cast<float4*>(out), nrows,
+      rb, d / 4);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -426,40 +918,49 @@ int launch_dequantise(const double* acc, const float* scale, float* out, int nro
 
 // Every entry point launches on `stream`, does not synchronise, allocates nothing, and returns
 // the cudaError_t of its launches (0 on success). `x` is [ncols, d], 16-byte aligned: f32 or
-// (x_bf16 != 0) bf16 with d % 8 == 0, adding into the zeroed f32 `out` [nrows, d]; or, for the
-// _int8 entry points, int8 with d % 32 == 0 beside its per-column f32 `scale` [d], adding into
-// the zeroed f64 scratch `acc` [nrows, d] and writing the dequantised f32 `out` whole.
+// (x_bf16 != 0) bf16 with d % 8 == 0, writing every row of the f32 `out` [nrows, d] (the dedup
+// kernel through the f32 `scratch` [n_parts, rb, d] where a window has several parts); or, for
+// the _int8 entry
+// points, int8 with d % 32 == 0 beside its per-column f32 `scale` [d], summing into the f64
+// scratch `acc` [nrows, d] (written whole by the base kernel; zeroed by the caller for the
+// dedup kernel, which adds into it) and writing the dequantised f32 `out` whole. `lanes_log2`
+// is log2 of the lanes a base-kernel team spreads one X row over (the wrapper's choice).
 
-extern "C" int hd_segment_spmm_rows(const int* chunk_row, const int* chunk_start,
-                                    const int* chunk_end, const int* cols, const float* vals,
-                                    const void* x, int x_bf16, float* out, int n_chunks, int d,
-                                    void* stream) {
+extern "C" int hd_segment_spmm_rows(const int* warp_rows, const int* row_start,
+                                    const int* row_end, const int* cols, const float* vals,
+                                    const void* x, int x_bf16, float* out, int n_ctas, int d,
+                                    int lanes_log2, int row_slots, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch_rows<__nv_bfloat16>(chunk_row, chunk_start, chunk_end, cols, vals, x,
-                                             out, n_chunks, d, s)
-                : launch_rows<float>(chunk_row, chunk_start, chunk_end, cols, vals, x, out,
-                                     n_chunks, d, s);
+  return x_bf16 ? launch_rows<__nv_bfloat16>(warp_rows, row_start, row_end, cols, vals, x, out,
+                                             n_ctas, d, lanes_log2, row_slots, s)
+                : launch_rows<float>(warp_rows, row_start, row_end, cols, vals, x, out, n_ctas,
+                                     d, lanes_log2, row_slots, s);
 }
 
-extern "C" int hd_segment_spmm_dedup(const int* wmap, const int* lrows, const int* lcols,
-                                     const int* ucols, const float* vals, const void* x,
-                                     int x_bf16, float* out, int n_blocks, int eb, int rb, int ub,
-                                     int d, void* stream) {
+extern "C" int hd_segment_spmm_dedup(const int* part_window, const int* part_blocks,
+                                     const int* window_parts, const int* ucols,
+                                     const int* order_rc, const int* order_slot,
+                                     const int* block_meta, const float* vals, const void* x,
+                                     int x_bf16, float* out, float* scratch, int n_parts,
+                                     int n_windows, int nrows, int eb, int rb, int ub, int d,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? launch_dedup<__nv_bfloat16>(wmap, lrows, lcols, ucols, vals, x, out, n_blocks,
-                                              eb, rb, ub, d, s)
-                : launch_dedup<float>(wmap, lrows, lcols, ucols, vals, x, out, n_blocks, eb, rb,
-                                      ub, d, s);
+  return x_bf16 ? launch_dedup<__nv_bfloat16>(part_window, part_blocks, window_parts, ucols,
+                                              order_rc, order_slot, block_meta, vals, x, out,
+                                              scratch, n_parts, n_windows, nrows, eb, rb, ub, d, s)
+                : launch_dedup<float>(part_window, part_blocks, window_parts, ucols, order_rc,
+                                      order_slot, block_meta, vals, x, out, scratch, n_parts,
+                                      n_windows, nrows, eb, rb, ub, d, s);
 }
 
-extern "C" int hd_segment_spmm_rows_int8(const int* chunk_row, const int* chunk_start,
-                                         const int* chunk_end, const int* cols, const float* vals,
+extern "C" int hd_segment_spmm_rows_int8(const int* warp_rows, const int* row_start,
+                                         const int* row_end, const int* cols, const float* vals,
                                          const void* xq, const float* scale, double* acc,
-                                         float* out, int n_chunks, int nrows, int d,
-                                         void* stream) {
+                                         float* out, int n_ctas, int nrows, int d,
+                                         int lanes_log2, int row_slots, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = launch_rows<int8_t>(chunk_row, chunk_start, chunk_end, cols, vals, xq, acc,
-                                     n_chunks, d, s);
+  const int rc = launch_rows<int8_t>(warp_rows, row_start, row_end, cols, vals, xq, acc, n_ctas,
+                                     d, lanes_log2, row_slots, s);
   return rc != 0 ? rc : launch_dequantise(acc, scale, out, nrows, d, s);
 }
 

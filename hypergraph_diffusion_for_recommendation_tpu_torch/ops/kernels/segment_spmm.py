@@ -8,17 +8,24 @@ per slot. The forward runs on four CUDA kernels written for Hopper
 (`csrc/segment_spmm.cu`):
 
   * `segment_spmm_rows` for the base layout (`pack_blocked`), the port of
-    `_segment_matmul_kernel`: a warp per chunk of at most `ROW_CHUNK`
-    slots of one row (`chunk_row`/`chunk_start`/`chunk_end`, port-only
-    fields the packer adds); rows longer than one chunk add their chunks
-    into the zeroed output with float atomics;
+    `_segment_matmul_kernel`: each warp of a 256-thread CTA sums a run
+    of consecutive rows of at most `ROW_SLOTS` slots in all, a row
+    longer than that gets a CTA of its own whose warps reduce through
+    shared memory (`warp_rows`, `row_start`, `row_end`: port-only fields
+    the packer adds); every row is written once, with no atomics;
   * `segment_spmm_dedup` for the dedup layout (`pack_blocked_dedup`), the
-    port of `_segment_matmul_dedup_kernel`: a CTA per edge block stages
-    the block's distinct X rows in shared memory once and adds each edge
-    into the zeroed output with float atomics;
+    port of `_segment_matmul_dedup_kernel`: a CTA per (part of a row
+    window's blocks, feature slice) stages each block's distinct X rows
+    in shared memory, and each warp sums the (row, distinct column) runs
+    of its 16 rows in registers: in bf16 as its rows' W tile times the
+    staged rows on the tensor cores, in f32 with multiply-adds
+    (`order_rc`, `order_slot`, `block_meta`, `window_blocks`: port-only
+    fields; `dedup_parts` cuts the blocks into parts); the parts of a
+    window cut into several are summed by a second pass in part order;
   * `segment_spmm_rows_int8` and `segment_spmm_dedup_int8`, the ports of
     `_segment_matmul_int8_kernel` and `_segment_matmul_dedup_int8_kernel`:
-    the same two kernels over an int8-quantised X (`BlockedCOO.int8`).
+    the first is the base kernel on an int8-quantised X
+    (`BlockedCOO.int8`), the second a kernel of its own.
 
 `blocked_spmm_reference` is the plain PyTorch version of all four and
 rounds where the kernels round. `blocked_spmm` takes it only for tensors
@@ -43,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -54,11 +61,22 @@ from ...core.device import resolve_device
 EDGE_BLOCK = 512
 ROW_BLOCK = 256
 UNIQUE_BLOCK = 256
-# slots of one row a warp of the base kernel sums (longer rows are split)
-ROW_CHUNK = 64
+# the base kernel's work list: a warp sums consecutive rows of at most
+# ROW_SLOTS slots in all and ROWS_PER_WARP rows; a longer row takes a CTA
+# of WARPS_PER_CTA warps (as many as the kernel's CTA has)
+ROW_SLOTS = 64
+ROWS_PER_WARP = 2
+WARPS_PER_CTA = 8
+_BATCH_COST = 32  # a row's slot load, counted as slots when the packer orders the CTAs
+# the dedup kernels: 16 warps a CTA, warp w owning the window rows
+# s * 16 + w, s < DEDUP_ROWS_PER_WARP, so a row window has at most 256 rows
+DEDUP_WARPS = 16
+DEDUP_ROWS_PER_WARP = 16
 
-# the most dynamic shared memory a Hopper CTA may use (227 KB)
+# the most dynamic shared memory a Hopper CTA may use (227 KB), and an SM
+# holds (228 KB)
 _MAX_SMEM = 232448
+_SM_SMEM = 233472
 
 # launches of each CUDA kernel, counted by `blocked_spmm` where it launches
 LAUNCHES = {"segment_spmm_rows": 0, "segment_spmm_dedup": 0,
@@ -85,17 +103,32 @@ class BlockedCOO:
     int8: bool = False
     eb: int = EDGE_BLOCK
     rb: int = ROW_BLOCK
-    # base layout only (port-only): chunk k is the flat slot range
-    # [chunk_start[k], chunk_end[k]) of the [n_blocks * eb] slot arrays, at
-    # most ROW_CHUNK live slots of one row, one warp of the kernel each;
-    # chunk_row[k] is that row, or ~row where the row spans several chunks
-    chunk_row: torch.Tensor | None = None  # [n_chunks] int32
-    chunk_start: torch.Tensor | None = None  # [n_chunks] int32
-    chunk_end: torch.Tensor | None = None  # [n_chunks] int32
+    # live (packed) edges; a layout without any launches no kernel
+    n_live: int = 0
+    # base layout only (port-only): warp k of CTA c sums the rows
+    # [warp_rows[c, k], warp_rows[c, k + 1]); a CTA whose first warp holds
+    # one row of more than ROW_SLOTS slots gives all its warps to that row.
+    # Row r's slots are the flat range [row_start[r], row_end[r]) of the
+    # [n_blocks * eb] slot arrays
+    warp_rows: torch.Tensor | None = None  # [n_ctas, WARPS_PER_CTA + 1] int32
+    row_start: torch.Tensor | None = None  # [nrows] int32
+    row_end: torch.Tensor | None = None  # [nrows] int32
     # dedup layout only: distinct columns per block and each slot's rank
     ucols: torch.Tensor | None = None  # [n_blocks, ub] int32 (pad 0)
     local_cols: torch.Tensor | None = None  # [n_blocks, eb] int32 in [0, ub); pad = ub
     ub: int = 0
+    # dedup layout only (port-only): each block's live slots in the order
+    # (row % 16, row, slot): (local row << 16) | local column, and the flat
+    # slot; block_meta[b] = the 257 offsets of the groups
+    # (row % 16) * 16 + row // 16 in that order (warp w sums the rows of
+    # groups 16 w .. 16 w + 15), then the block's distinct columns in use;
+    # window w's blocks are [window_blocks[w], window_blocks[w + 1])
+    order_rc: torch.Tensor | None = None  # [n_blocks, eb] int32
+    order_slot: torch.Tensor | None = None  # [n_blocks, eb] int32
+    block_meta: torch.Tensor | None = None  # [n_blocks, 258] int32
+    window_blocks: tuple[int, ...] = ()
+    # what the wrapper checked and derived once (shared by `replace` copies)
+    cache: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def dedup(self) -> bool:
@@ -123,6 +156,122 @@ def _pad_blocks8(cols, vals, lrows, src, wmap, rb, lcols=None, ucols=None, ub=0)
     if lcols is None:
         return out
     return out + (np.pad(lcols, bp, constant_values=ub), np.pad(ucols, bp))
+
+
+def _row_work(counts: np.ndarray) -> np.ndarray:
+    """The base kernel's work list, `warp_rows` [n_ctas, WARPS_PER_CTA + 1]:
+    CTA c's warp k takes the rows [warp_rows[c, k], warp_rows[c, k + 1]).
+    Greedy over the rows in order, a warp takes consecutive rows (empty
+    ones too) while they add up to at most ROW_SLOTS slots and
+    ROWS_PER_WARP rows; a row longer than ROW_SLOTS closes the CTA being
+    filled (its remaining warps get no rows) and takes a CTA of its own,
+    one row in its first warp and none in the others. Every row lies in
+    exactly one warp. The CTAs are listed costliest first (a hub CTA's
+    eighth of its row, a packed CTA's busiest warp), so that the long ones
+    do not start last and leave the card waiting on a tail."""
+    n = counts.shape[0]
+    bounds = [0]  # warp k takes the rows [bounds[k], bounds[k + 1])
+    rows = slots = 0  # in the warp being filled, which starts at bounds[-1]
+
+    def close_cta(r):
+        bounds.extend([r] * (-(len(bounds) - 1) % WARPS_PER_CTA))
+
+    for r, c in enumerate(counts.tolist()):
+        if c > ROW_SLOTS:
+            if rows:
+                bounds.append(r)
+            close_cta(r)
+            bounds.extend([r + 1] * WARPS_PER_CTA)
+            rows = slots = 0
+            continue
+        if rows and (slots + c > ROW_SLOTS or rows == ROWS_PER_WARP):
+            bounds.append(r)
+            rows = slots = 0
+        rows += 1
+        slots += c
+    if rows:
+        bounds.append(n)
+    close_cta(n)
+    bounds = np.asarray(bounds, np.int64)
+    n_ctas = (bounds.shape[0] - 1) // WARPS_PER_CTA
+    ctas = bounds[np.arange(n_ctas)[:, None] * WARPS_PER_CTA + np.arange(WARPS_PER_CTA + 1)]
+    # cost in slots: a warp's slots plus a batch load a row; a hub CTA's warp sums an eighth
+    row_slot = np.concatenate([[0], np.cumsum(counts)])
+    warp_cost = (row_slot[ctas[:, 1:]] - row_slot[ctas[:, :-1]]
+                 + _BATCH_COST * (ctas[:, 1:] - ctas[:, :-1]))
+    hub = (ctas[:, 1] == ctas[:, 0] + 1) & (counts[np.minimum(ctas[:, 0], n - 1)] > ROW_SLOTS)
+    cost = np.where(hub, warp_cost[:, 0] / WARPS_PER_CTA + _BATCH_COST, warp_cost.max(axis=1))
+    return ctas[np.argsort(-cost, kind="stable")]
+
+
+def _dedup_order(lrows: np.ndarray, lcols: np.ndarray, rb: int, eb: int):
+    """The dedup kernel's per-block work lists (see `BlockedCOO`) from the
+    padded [n_blocks, eb] local rows and columns: (order_rc, order_slot,
+    block_meta)."""
+    if rb > DEDUP_WARPS * DEDUP_ROWS_PER_WARP or lcols.max(initial=0) > 65535:
+        raise ValueError("pack_blocked_dedup: the CUDA kernel takes row_block <= 256 and "
+                         "unique_block <= 65535")
+    nb = lrows.shape[0]
+    b_idx, pos = np.nonzero(lrows < rb)
+    lr, lc = lrows[b_idx, pos], lcols[b_idx, pos]
+    group = (lr % DEDUP_WARPS) * DEDUP_ROWS_PER_WARP + lr // DEDUP_WARPS
+    order = np.lexsort((pos, group, b_idx))
+    b_s, lr_s, lc_s, pos_s = b_idx[order], lr[order], lc[order], pos[order]
+    count = np.bincount(b_idx, minlength=nb)
+    rank = np.arange(b_s.shape[0]) - np.repeat(np.cumsum(count) - count, count)
+    order_rc = np.zeros((nb, eb), np.int64)
+    order_slot = np.zeros((nb, eb), np.int64)
+    order_rc[b_s, rank] = (lr_s << 16) | lc_s
+    order_slot[b_s, rank] = b_s * eb + pos_s
+    n_groups = DEDUP_WARPS * DEDUP_ROWS_PER_WARP
+    per_group = np.bincount(b_idx * n_groups + group, minlength=nb * n_groups)
+    meta = np.zeros((nb, n_groups + 2), np.int64)
+    meta[:, 1: n_groups + 1] = np.cumsum(per_group.reshape(nb, n_groups), axis=1)
+    np.maximum.at(meta[:, n_groups + 1], b_idx, lc + 1)  # distinct columns in use
+    return order_rc, order_slot, meta
+
+
+def _window_bounds(wmap: np.ndarray, n_windows: int) -> tuple[int, ...]:
+    """Block boundaries of the windows over the non-decreasing `wmap` (the
+    trailing pad blocks repeat, and so join, the last window)."""
+    starts = np.searchsorted(wmap, np.arange(n_windows), side="left")
+    return tuple(int(b) for b in starts) + (int(wmap.shape[0]),)
+
+
+def dedup_parts(window_blocks, target: int,
+                cost=None) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The dedup kernel's parts (a CTA each per feature slice): each
+    window's blocks cut into consecutive ranges of near-equal `cost` (one a
+    block by default), at most `target` parts in all where the windows
+    allow it. Returns (part_window [n_parts], part_blocks [n_parts + 1]:
+    part p takes the blocks [part_blocks[p], part_blocks[p + 1]),
+    window_parts [n_windows + 1]: window w's parts are [window_parts[w],
+    window_parts[w + 1]))."""
+    wb = np.asarray(window_blocks, np.int64)
+    n_blocks = int(wb[-1])
+    cost = np.ones(n_blocks) if cost is None else np.asarray(cost, np.float64)
+    cum = np.concatenate([[0.0], np.cumsum(cost)])
+    w_cost = cum[wb[1:]] - cum[wb[:-1]]
+    budget = max(cum[-1] / max(target, 1), cost.max(initial=1.0))
+    while True:
+        parts = np.maximum(1, np.ceil(w_cost / budget - 1e-9).astype(np.int64))
+        if parts.sum() <= target or (parts == 1).all():
+            break
+        budget *= 1.05
+    starts = []
+    for w in range(wb.shape[0] - 1):
+        lo, hi = int(wb[w]), int(wb[w + 1])
+        # part k of the window starts at the block holding the k-th of its
+        # `parts` evenly spaced cost marks
+        marks = cum[lo] + w_cost[w] * np.arange(parts[w]) / parts[w]
+        first = np.searchsorted(cum[lo:hi], marks, side="right") - 1 + lo
+        starts.append(np.maximum.accumulate(first))
+    starts = np.concatenate(starts) if starts else np.zeros(0, np.int64)
+    keep = np.concatenate([[True], starts[1:] != starts[:-1]])  # drop empty parts
+    starts = starts[keep]
+    part_window = np.searchsorted(wb, starts, side="right") - 1
+    window_parts = np.searchsorted(part_window, np.arange(wb.shape[0]), side="left")
+    return part_window, np.append(starts, n_blocks), window_parts
 
 
 def _i32(a: np.ndarray, device) -> torch.Tensor:
@@ -176,16 +325,12 @@ def pack_blocked(
     src_b[flat] = live_idx
 
     # a window's edges fill a contiguous flat range in row order, so each
-    # row's slots are contiguous too; cut them into chunks of ROW_CHUNK
+    # row's slots are contiguous too
     counts = np.bincount(rows_l.astype(np.int64), minlength=shape[0])[: shape[0]]
     first = np.searchsorted(rows_l, np.arange(shape[0]), side="left")
-    n_chunks = -(-counts // ROW_CHUNK)  # empty rows get none: the output starts zeroed
-    chunk_row = np.repeat(np.arange(shape[0], dtype=np.int64), n_chunks)
-    k_in_row = np.arange(chunk_row.shape[0]) - np.repeat(np.cumsum(n_chunks) - n_chunks, n_chunks)
-    row_start = flat[first[chunk_row]]
-    chunk_start = row_start + ROW_CHUNK * k_in_row
-    chunk_end = np.minimum(chunk_start + ROW_CHUNK, row_start + counts[chunk_row])
-    chunk_row = np.where(n_chunks[chunk_row] > 1, ~chunk_row, chunk_row)
+    row_start = np.zeros(shape[0], np.int64)  # an empty row: the empty range [0, 0)
+    row_start[counts > 0] = flat[first[counts > 0]]
+    row_end = row_start + counts
 
     cols_p, vals_p, lrows_p, src_p, wmap_p = _pad_blocks8(
         cols_b.reshape(n_blocks, eb), vals_b.reshape(n_blocks, eb),
@@ -207,9 +352,10 @@ def pack_blocked(
         bf16=bf16,
         eb=eb,
         rb=rb,
-        chunk_row=_i32(chunk_row, device),
-        chunk_start=_i32(chunk_start, device),
-        chunk_end=_i32(chunk_end, device),
+        n_live=int(n_live),
+        warp_rows=_i32(_row_work(counts), device),
+        row_start=_i32(row_start, device),
+        row_end=_i32(row_end, device),
     )
 
 
@@ -298,6 +444,7 @@ def pack_blocked_dedup(
         lcols=lcols_b, ucols=ucols_b, ub=ub,
     )
     canon_np = src_b if canon_map is None else np.asarray(canon_map)[src_b]
+    order_rc, order_slot, block_meta = _dedup_order(lrows_b, lcols_b, rb, eb)
     return BlockedCOO(
         cols=_i32(cols_b, device),
         vals=torch.as_tensor(vals_b, device=device),
@@ -312,9 +459,14 @@ def pack_blocked_dedup(
         bf16=bf16,
         eb=eb,
         rb=rb,
+        n_live=int(n_live),
         ucols=_i32(ucols_b, device),
         local_cols=_i32(lcols_b, device),
         ub=ub,
+        order_rc=_i32(order_rc, device),
+        order_slot=_i32(order_slot, device),
+        block_meta=_i32(block_meta, device),
+        window_blocks=_window_bounds(wmap_np, n_windows),
     )
 
 
@@ -371,6 +523,7 @@ def blocked_spmm_reference(blocked: BlockedCOO, x: torch.Tensor) -> torch.Tensor
 
 
 _lib = None
+_SM_COUNT: dict[int, int] = {}
 
 
 def _library() -> ctypes.CDLL:
@@ -381,19 +534,21 @@ def _library() -> ctypes.CDLL:
 
         lib = load_library("segment_spmm")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hd_segment_spmm_rows.argtypes = [p, p, p, p, p, p, i, p, i, i, p]
+        lib.hd_segment_spmm_rows.argtypes = [p] * 6 + [i, p, i, i, i, i, p]
         lib.hd_segment_spmm_rows.restype = i
-        lib.hd_segment_spmm_dedup.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, i, p]
+        lib.hd_segment_spmm_dedup.argtypes = [p] * 9 + [i, p, p] + [i] * 7 + [p]
         lib.hd_segment_spmm_dedup.restype = i
-        lib.hd_segment_spmm_rows_int8.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.hd_segment_spmm_rows_int8.argtypes = [p] * 9 + [i] * 5 + [p]
         lib.hd_segment_spmm_rows_int8.restype = i
-        lib.hd_segment_spmm_dedup_int8.argtypes = [p, p, p, p, p, p, p, p, p] + [i] * 8 + [p]
+        lib.hd_segment_spmm_dedup_int8.argtypes = [p] * 9 + [i] * 8 + [p]
         lib.hd_segment_spmm_dedup_int8.restype = i
         _lib = lib
     return _lib
 
 
-def _check_layout(blocked: BlockedCOO, x: torch.Tensor) -> None:
+def _check_call(blocked: BlockedCOO, x: torch.Tensor) -> None:
+    """What may change from call to call: X, and the values (edge dropout
+    replaces them)."""
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(
             f"blocked_spmm: X must be a contiguous 2-D float32 tensor, got "
@@ -405,22 +560,99 @@ def _check_layout(blocked: BlockedCOO, x: torch.Tensor) -> None:
         raise ValueError(f"blocked_spmm: the CUDA kernels need d % 8 == 0, got d={x.shape[1]}")
     if blocked.int8 and x.shape[1] % 32:
         raise ValueError(f"blocked_spmm: the int8 kernels need d % 32 == 0, got d={x.shape[1]}")
-    arrays = [blocked.cols, blocked.vals, blocked.local_rows, blocked.wmap]
-    arrays += ([blocked.ucols, blocked.local_cols] if blocked.dedup else
-               [blocked.chunk_row, blocked.chunk_start, blocked.chunk_end])
-    for a in arrays:
-        if a.device != x.device or not a.is_contiguous():
+    v = blocked.vals
+    if (v.dtype != torch.float32 or v.device != x.device or not v.is_contiguous()
+            or v.numel() != blocked.n_blocks * blocked.eb):
+        raise ValueError("blocked_spmm: the layout's vals must be a contiguous float32 "
+                         "[n_blocks, eb] tensor on X's device")
+
+
+def _structure(blocked: BlockedCOO, device: torch.device) -> tuple[int, ...]:
+    """The data pointers of the index tensors the layout's kernel reads,
+    checked at first use and then kept in `blocked.cache` (which the
+    layout's `replace` copies share) for as long as the same tensors are
+    in the layout."""
+    if not blocked.dedup:
+        tensors = (blocked.warp_rows, blocked.row_start, blocked.row_end, blocked.cols)
+    elif blocked.int8:
+        tensors = (blocked.wmap, blocked.local_rows, blocked.local_cols, blocked.ucols)
+    else:
+        tensors = (blocked.ucols, blocked.order_rc, blocked.order_slot, blocked.block_meta)
+    key = ("structure", blocked.dedup, blocked.int8)
+    hit = blocked.cache.get(key)
+    if hit is not None and hit[0] == device and all(a is b for a, b in zip(hit[1], tensors)):
+        return hit[2]
+    for a in tensors:
+        if a is None:
+            raise ValueError("blocked_spmm: the layout lacks the kernel's work lists (pack it "
+                             "with pack_blocked or pack_blocked_dedup)")
+        if a.device != device or not a.is_contiguous():
             raise ValueError("blocked_spmm: layout tensors must be contiguous and on X's device")
-        if a.dtype != (torch.float32 if a is blocked.vals else torch.int32):
+        if a.dtype != torch.int32:
             raise ValueError(f"blocked_spmm: layout tensor of dtype {a.dtype}; the kernels "
                              f"take int32 indices and float32 values")
+    ptrs = tuple(a.data_ptr() for a in tensors)
+    blocked.cache[key] = (device, tensors, ptrs)
+    return ptrs
 
 
-def _launch(blocked: BlockedCOO, x: torch.Tensor) -> torch.Tensor:
-    """A @ X on the card: the layout's CUDA kernel on the current stream."""
-    _check_layout(blocked, x)
+def _dedup_slice(elem_size: int) -> int:
+    # features a dedup CTA sums: 128 in bf16 (the tensor-core kernel), 64 in f32
+    return 128 if elem_size == 2 else 64
+
+
+def _dedup_smem(blocked: BlockedCOO, elem_size: int) -> int:
+    # as `mma_smem_bytes` (bf16) and `dedup_smem_bytes` (f32) in the CUDA
+    # source: two data stages (the block's staged rows and slots), three of
+    # its indices; in f32 its run weights, in bf16 the warps' [16, 64] W
+    # tiles
+    eb, ub, sl = blocked.eb, blocked.ub, _dedup_slice(elem_size)
+    if elem_size == 2:
+        return 2 * (ub * (sl + 8) * 2 + eb * 8) + 3 * (260 + ub + eb) * 4 + 256 * 72 * 2
+    return 2 * (ub * sl * 4 + eb * 8) + 3 * (260 + ub + eb) * 4 + eb * 4
+
+
+def dedup_target(blocked: BlockedCOO, d: int, elem_size: int, n_sms: int) -> int:
+    """Parts the dedup kernel cuts the blocks into: as many CTAs (parts x
+    feature slices) as `n_sms` SMs hold at once."""
+    per_sm = max(1, min(_SM_SMEM // _dedup_smem(blocked, elem_size),
+                        2048 // (DEDUP_WARPS * 32)))
+    return max(1, n_sms * per_sm // -(-d // _dedup_slice(elem_size)))
+
+
+def dedup_block_cost(block_meta: np.ndarray) -> np.ndarray:
+    """A block's cost to the dedup kernel, in units of one 16-column mma
+    step of the bf16 kernel: the staging and the barrier (about four steps,
+    measured on the H100) and one step per 16 distinct columns."""
+    return 4 + -(-block_meta[:, -1] // 16)
+
+
+def _parts(blocked: BlockedCOO, target: int, device: torch.device):
+    key = ("parts", target, device)
+    hit = blocked.cache.get(key)
+    if hit is None:
+        cost = dedup_block_cost(blocked.block_meta.cpu().numpy())  # once a layout
+        hit = blocked.cache[key] = tuple(
+            _i32(a, device) for a in dedup_parts(blocked.window_blocks, target, cost))
+    return hit
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _SM_COUNT.get(device.index)
+    if n is None:
+        n = _SM_COUNT[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def _launch(blocked: BlockedCOO, x: torch.Tensor, target: int | None = None) -> torch.Tensor:
+    """A @ X on the card: the layout's CUDA kernel on the current stream.
+    `target` overrides `dedup_target` for the dedup kernel."""
+    _check_call(blocked, x)
+    ptrs = _structure(blocked, x.device)
     lib = _library()
-    d = x.shape[1]
+    n, d, dev = blocked.nrows, x.shape[1], x.device
+    if blocked.n_live == 0:  # no edges: nothing to launch
+        return torch.zeros(n, d, dtype=torch.float32, device=dev)
     scale = None
     if blocked.int8:
         table, scale = quantize_int8(x)  # torch ops, as XLA ops in JAX
@@ -428,58 +660,64 @@ def _launch(blocked: BlockedCOO, x: torch.Tensor) -> torch.Tensor:
         table = x.to(torch.bfloat16)  # cast the table once
     else:
         table = x
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        # zeroed: empty rows stay zero, and split rows and the dedup kernel
-        # add into it (in int8 mode: into the zeroed f64 scratch `acc`)
-        out = torch.zeros(blocked.nrows, d, dtype=torch.float32, device=x.device)
+    # every kernel writes every row of `out` (and the base kernel of `acc`)
+    out = torch.empty(n, d, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    vals, tab = blocked.vals.data_ptr(), table.data_ptr()
+    tiles = (blocked.eb, blocked.rb, blocked.ub, d, stream)
+    if not blocked.dedup:
+        n_ctas = blocked.warp_rows.shape[0]
+        # a team of 2^lanes_log2 lanes covers a row, 16 B (8 B for int8) a lane
+        per_lane = 4 if table.dtype == torch.float32 else 8
+        lanes_log2 = min(5, (-(-d // per_lane) - 1).bit_length())
         if scale is not None:
-            acc = torch.zeros(blocked.nrows, d, dtype=torch.float64, device=x.device)
-        if not blocked.dedup:
-            if blocked.chunk_row.shape[0] == 0:  # no edges: nothing to launch
-                return out
-            chunks = (blocked.chunk_row.data_ptr(), blocked.chunk_start.data_ptr(),
-                      blocked.chunk_end.data_ptr(), blocked.cols.data_ptr(),
-                      blocked.vals.data_ptr(), table.data_ptr())
-            n_chunks = blocked.chunk_row.shape[0]
-            if scale is not None:
-                rc = lib.hd_segment_spmm_rows_int8(
-                    *chunks, scale.data_ptr(), acc.data_ptr(), out.data_ptr(), n_chunks,
-                    blocked.nrows, d, stream)
-                name = "segment_spmm_rows_int8"
-            else:
-                rc = lib.hd_segment_spmm_rows(*chunks, int(blocked.bf16), out.data_ptr(),
-                                              n_chunks, d, stream)
-                name = "segment_spmm_rows"
+            name, fn = "segment_spmm_rows_int8", lib.hd_segment_spmm_rows_int8
+            acc = torch.empty(n, d, dtype=torch.float64, device=dev)
+            args = (*ptrs, vals, tab, scale.data_ptr(), acc.data_ptr(), out.data_ptr(), n_ctas,
+                    n, d, lanes_log2, ROW_SLOTS, stream)
         else:
-            # kernel 2 stages ub whole rows; the int8 kernel an [rb, 32] f64
-            # tile, a 32-feature slice of ub rows and the block's eb slots
-            smem = (blocked.ub * d * table.element_size() if scale is None
-                    else blocked.rb * 32 * 8 + blocked.ub * 32 + blocked.eb * 20)
-            if smem > _MAX_SMEM:
-                raise ValueError(
-                    f"blocked_spmm: {smem} B of shared memory exceed the {_MAX_SMEM} B a "
-                    f"Hopper CTA may use"
-                )
-            blocks = (blocked.wmap.data_ptr(), blocked.local_rows.data_ptr(),
-                      blocked.local_cols.data_ptr(), blocked.ucols.data_ptr(),
-                      blocked.vals.data_ptr(), table.data_ptr())
-            tiles = (blocked.eb, blocked.rb, blocked.ub, d, stream)
-            if scale is not None:
-                # about 8 blocks per CTA: a window's blocks split into groups
-                groups = max(1, round(blocked.n_blocks / (blocked.n_windows * 8)))
-                rc = lib.hd_segment_spmm_dedup_int8(
-                    *blocks, scale.data_ptr(), acc.data_ptr(), out.data_ptr(), blocked.n_blocks,
-                    blocked.n_windows, groups, blocked.nrows, *tiles)
-                name = "segment_spmm_dedup_int8"
-            else:
-                rc = lib.hd_segment_spmm_dedup(*blocks, int(blocked.bf16), out.data_ptr(),
-                                               blocked.n_blocks, *tiles)
-                name = "segment_spmm_dedup"
+            name, fn = "segment_spmm_rows", lib.hd_segment_spmm_rows
+            args = (*ptrs, vals, tab, int(blocked.bf16), out.data_ptr(), n_ctas, d, lanes_log2,
+                    ROW_SLOTS, stream)
+    elif scale is not None:
+        # an [rb, 32] f64 tile, a 32-feature slice of ub rows and the eb slots
+        _check_smem(blocked.rb * 32 * 8 + blocked.ub * 32 + blocked.eb * 20)
+        name, fn = "segment_spmm_dedup_int8", lib.hd_segment_spmm_dedup_int8
+        # zeroed: the kernel adds its tiles into it; about 8 blocks per CTA
+        acc = torch.zeros(n, d, dtype=torch.float64, device=dev)
+        g = max(1, round(blocked.n_blocks / (blocked.n_windows * 8)))
+        args = (*ptrs, vals, tab, scale.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                blocked.n_blocks, blocked.n_windows, g, n, *tiles)
+    else:
+        _check_smem(_dedup_smem(blocked, table.element_size()))
+        if blocked.bf16 and (blocked.ub > 256 or blocked.ub % 4 or blocked.eb % 4):
+            raise ValueError(f"blocked_spmm: the bf16 dedup kernel takes unique_block <= 256 "
+                             f"and edge and unique blocks of multiples of 4, got eb={blocked.eb} "
+                             f"ub={blocked.ub}")
+        name, fn = "segment_spmm_dedup", lib.hd_segment_spmm_dedup
+        pw, pb, wp = _parts(blocked, target or dedup_target(
+            blocked, d, table.element_size(), _sm_count(dev)), dev)
+        n_parts = pw.shape[0]
+        # [n_parts, rb, d]: the tiles of the windows cut into several parts
+        scratch = (torch.empty(n_parts, blocked.rb, d, dtype=torch.float32, device=dev)
+                   if n_parts > blocked.n_windows else out)
+        args = (pw.data_ptr(), pb.data_ptr(), wp.data_ptr(), *ptrs, vals, tab, int(blocked.bf16),
+                out.data_ptr(), scratch.data_ptr(), n_parts, blocked.n_windows, n, *tiles)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
     return out
+
+
+def _check_smem(smem: int) -> None:
+    if smem > _MAX_SMEM:
+        raise ValueError(f"blocked_spmm: {smem} B of shared memory exceed the {_MAX_SMEM} B a "
+                         f"Hopper CTA may use")
 
 
 def _forward(blocked: BlockedCOO, x: torch.Tensor) -> torch.Tensor:

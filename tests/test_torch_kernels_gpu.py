@@ -51,11 +51,60 @@ def test_cuda_kernels_match_plain(cuda, tiles, dedup, mode):
         "_int8" if mode == "int8" else "")
     assert tsp.LAUNCHES[name] == before[name] + 1
     want = tsp.blocked_spmm_reference(tb, x)
-    # the same products summed in another f32 order (float atomics)
+    # the same products summed in another f32 order
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
     # empty rows come out zero
     empty = np.setdiff1d(np.arange(shape[0]), rows[rows < shape[0]])
     assert empty.size and float(got[torch.as_tensor(empty, device=cuda)].abs().max()) == 0.0
+
+
+def _one_block_graph():
+    # 300 edges on 100 rows: one window whose edges fill one block of either
+    # layout (the packers add seven all-pad blocks to reach a multiple of 8)
+    rng = np.random.default_rng(3)
+    n, m = 100, 80
+    rows, cols = rng.integers(0, n, 300), rng.integers(0, m, 300)
+    order = np.lexsort((cols, rows))
+    vals = rng.standard_normal(300).astype(np.float32)
+    rows = np.concatenate([rows[order], np.full(3, n)]).astype(np.int32)
+    cols = np.concatenate([cols[order], np.zeros(3, np.int64)]).astype(np.int32)
+    return (n, m), rows, cols, np.concatenate([vals[order], np.zeros(3, np.float32)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [8, 256])
+@pytest.mark.parametrize("graph", ["hub", "one_block"])
+@pytest.mark.parametrize("kernel", ["rows", "dedup_whole_windows", "dedup_split_windows"])
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+def test_redesigned_kernels_match_plain_and_repeat(cuda, mode, kernel, graph, d):
+    # kernel 1 on a hub row far longer than one CTA's warps' share (3000
+    # slots) and on a window of one block; kernel 2 with each window in one
+    # part and with a part per block (the second pass sums the parts' tiles);
+    # the narrowest and a wide d. Both write every row once in a fixed
+    # order: two calls give the same bits
+    shape, rows, cols, vals = _hub_graph() if graph == "hub" else _one_block_graph()
+    dedup = kernel.startswith("dedup")
+    pack = tsp.pack_blocked_dedup if dedup else tsp.pack_blocked
+    tb = pack(rows, cols, vals, shape, bf16=mode == "bf16", device=cuda)
+    if graph == "one_block":
+        live_blocks = (tb.local_rows < tb.rb).any(dim=1)
+        assert tb.n_windows == 1 and int(live_blocks.sum()) == 1
+    else:
+        assert int((rows == 0).sum()) > tsp.WARPS_PER_CTA * tsp.ROW_SLOTS  # the hub row
+    x = torch.randn(shape[1], d, device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    target = {"dedup_whole_windows": 1, "dedup_split_windows": 10**6}.get(kernel)
+    name = "segment_spmm_dedup" if dedup else "segment_spmm_rows"
+    before = tsp.LAUNCHES[name]
+    got = tsp._launch(tb, x, target)
+    again = tsp._launch(tb, x, target)
+    torch.cuda.synchronize()
+    assert tsp.LAUNCHES[name] == before + 2
+    assert torch.equal(got, again)
+    want = tsp.blocked_spmm_reference(tb, x)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    empty = np.setdiff1d(np.arange(shape[0]), rows[rows < shape[0]])
+    if empty.size:
+        assert float(got[torch.as_tensor(empty, device=cuda)].abs().max()) == 0.0
 
 
 @pytest.mark.gpu

@@ -126,27 +126,175 @@ def test_reference_matches_scipy(dedup):
     np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-4)
 
 
+def _base_work(tb):
+    """Decode the base kernel's work list as the kernel reads it: the rows
+    each warp (or hub CTA) writes, and the owner row of each flat slot."""
+    wr, rs, re_ = tb.warp_rows.numpy(), tb.row_start.numpy(), tb.row_end.numpy()
+    per = tsp.WARPS_PER_CTA
+    assert wr.shape[1] == per + 1 and (np.diff(wr, axis=1) >= 0).all()
+    writes = np.zeros(tb.nrows, np.int64)
+    owner = np.full(tb.n_blocks * tb.eb, -1)
+    hubs = []
+    for w in wr:
+        if w[1] == w[0] + 1 and re_[w[0]] - rs[w[0]] > tsp.ROW_SLOTS:
+            assert (w[1:] == w[0] + 1).all()  # the other warps hold no rows
+            rows = [w[0]]
+            hubs.append(w[0])
+        else:
+            rows = range(w[0], w[-1])
+            for k in range(per):
+                assert w[k + 1] - w[k] <= tsp.ROWS_PER_WARP
+                assert (re_[w[k]:w[k + 1]] - rs[w[k]:w[k + 1]]).sum() <= tsp.ROW_SLOTS
+        for r in rows:
+            writes[r] += 1
+            assert (owner[rs[r]:re_[r]] == -1).all()
+            owner[rs[r]:re_[r]] = r
+    return writes, owner, hubs
+
+
 def test_base_row_chunks_cover_each_live_slot_once():
-    # the base kernel reads the flat slot ranges [chunk_start, chunk_end),
-    # at most ROW_CHUNK slots each: every live slot must lie in exactly one
-    # chunk, of its own row, and a row is tagged ~row where it spans several
+    # the base kernel reads the flat slot ranges [row_start, row_end) of the
+    # rows its work list gives each warp: every live slot must lie in
+    # exactly one range, of its own row, and the hub row takes a CTA
     shape, rows, cols, vals, tiles = _coo("hub_small_tiles")
     tiles.pop("unique_block")
     tb = tsp.pack_blocked(rows, cols, vals, shape, device="cpu", **tiles)
     lrows = tb.local_rows.reshape(-1).numpy()
     grow = np.repeat(tb.wmap.numpy(), tb.eb) * tb.rb + lrows
-    tagged = tb.chunk_row.numpy()
-    row = np.where(tagged < 0, ~tagged, tagged)
-    owner = np.full(lrows.shape[0], -1)
-    for r, s, e in zip(row, tb.chunk_start.numpy(), tb.chunk_end.numpy()):
-        assert 0 < e - s <= tsp.ROW_CHUNK and (owner[s:e] == -1).all()
-        owner[s:e] = r
+    writes, owner, hubs = _base_work(tb)
     live = lrows < tb.rb
     np.testing.assert_array_equal(owner[live], grow[live])
     assert (owner[~live] == -1).all()
-    chunks_of_row = np.bincount(row, minlength=shape[0])
-    np.testing.assert_array_equal(tagged < 0, chunks_of_row[row] > 1)
-    assert chunks_of_row[0] == -(-3000 // tsp.ROW_CHUNK)  # the hub row is split
+    np.testing.assert_array_equal(writes, 1)
+    assert hubs[0] == 0 and tb.row_end[0] - tb.row_start[0] == 3000  # the hub row
+    assert tb.n_live == int(live.sum())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_base_work_list_writes_every_row_once(case):
+    # every output row, empty ones and those of empty windows included, has
+    # exactly one writer; live slots are covered once, pads never
+    shape, rows, cols, vals, tiles = _coo(case)
+    tiles.pop("unique_block", None)
+    tb = tsp.pack_blocked(rows, cols, vals, shape, device="cpu", **tiles)
+    writes, owner, hubs = _base_work(tb)
+    np.testing.assert_array_equal(writes, 1)
+    lrows = tb.local_rows.reshape(-1).numpy()
+    grow = np.repeat(tb.wmap.numpy(), tb.eb) * tb.rb + lrows
+    live = lrows < tb.rb
+    np.testing.assert_array_equal(owner[live], grow[live])
+    assert (owner[~live] == -1).all()
+    counts = np.bincount(rows[rows < shape[0]], minlength=shape[0])
+    np.testing.assert_array_equal(sorted(hubs), np.nonzero(counts > tsp.ROW_SLOTS)[0])
+
+
+def _emulate_dedup(tb, x, target):
+    """The f32 dedup kernel's walk in numpy: per part its blocks; per
+    block, group k of the ordered slots is row (k % 16) * 16 + k // 16, W
+    is summed per (row, column) run and W * X added into the row's sum;
+    a window's parts added in part order."""
+    rc, slot, meta = tb.order_rc.numpy(), tb.order_slot.numpy(), tb.block_meta.numpy()
+    vals, ucols = tb.vals.numpy().reshape(-1), tb.ucols.numpy()
+    n_groups = tsp.DEDUP_WARPS * tsp.DEDUP_ROWS_PER_WARP
+    part_window, part_blocks, _ = tsp.dedup_parts(tb.window_blocks, target,
+                                                  tsp.dedup_block_cost(meta))
+    out = np.zeros((tb.n_windows * tb.rb, x.shape[1]), np.float32)
+    for p, w in enumerate(part_window):
+        sums = np.zeros((n_groups, x.shape[1]), np.float32)
+        for b in range(part_blocks[p], part_blocks[p + 1]):
+            xs = x[ucols[b, : meta[b, n_groups + 1]]]
+            for k in range(n_groups):
+                row = (k % tsp.DEDUP_ROWS_PER_WARP) * tsp.DEDUP_WARPS + k // tsp.DEDUP_ROWS_PER_WARP
+                run = np.float32(0)
+                for t in range(meta[b, k], meta[b, k + 1]):
+                    assert rc[b, t] >> 16 == row
+                    run += vals[slot[b, t]]
+                    if t + 1 == meta[b, n_groups] or rc[b, t + 1] != rc[b, t]:
+                        sums[row] += run * xs[rc[b, t] & 0xFFFF]
+                        run = np.float32(0)
+        out[w * tb.rb:(w + 1) * tb.rb] += sums[: tb.rb]
+    return out[: tb.nrows]
+
+
+@pytest.mark.parametrize("target", [1, 3, 1000])
+@pytest.mark.parametrize("case", list(CASES))
+def test_dedup_work_lists_cover_each_live_slot_once(case, target):
+    # each block's ordered list holds each live slot once, grouped by row in
+    # the order (row % 16, row, slot) with its (row, column); the parts of a
+    # window take each of its blocks once; and the kernel's walk over them
+    # computes A @ X
+    shape, rows, cols, vals, tiles = _coo(case)
+    tb = tsp.pack_blocked_dedup(rows, cols, vals, shape, device="cpu", **tiles)
+    lrows, lcols = tb.local_rows.numpy(), tb.local_cols.numpy()
+    rc, slot, meta = tb.order_rc.numpy(), tb.order_slot.numpy(), tb.block_meta.numpy()
+    n_groups = tsp.DEDUP_WARPS * tsp.DEDUP_ROWS_PER_WARP
+    assert meta.shape == (tb.n_blocks, n_groups + 2)
+    for b in range(tb.n_blocks):
+        live = np.nonzero(lrows[b] < tb.rb)[0]
+        n = meta[b, n_groups]
+        assert meta[b, 0] == 0 and (np.diff(meta[b, : n_groups + 1]) >= 0).all()
+        np.testing.assert_array_equal(live, np.arange(n))  # the live slots lead the block
+        pos = slot[b, :n] - b * tb.eb
+        np.testing.assert_array_equal(np.sort(pos), live)
+        np.testing.assert_array_equal(rc[b, :n], (lrows[b, pos] << 16) | lcols[b, pos])
+        key = np.stack([lrows[b, pos] % tsp.DEDUP_WARPS, lrows[b, pos], pos])
+        assert (np.lexsort(key[::-1]) == np.arange(n)).all()
+        assert meta[b, -1] == (lcols[b, live].max() + 1 if n else 0)
+        assert (np.diff(lcols[b, live]) >= 0).all()  # a W chunk's slots are consecutive
+    wmap = tb.wmap.numpy()
+    assert tb.window_blocks[0] == 0 and tb.window_blocks[-1] == tb.n_blocks
+    for w in range(tb.n_windows):
+        lo, hi = tb.window_blocks[w], tb.window_blocks[w + 1]
+        assert hi > lo and (wmap[lo:hi] == w).all()  # an empty window has its pad block
+    part_window, part_blocks, window_parts = tsp.dedup_parts(tb.window_blocks, target,
+                                                             tsp.dedup_block_cost(meta))
+    assert part_blocks[0] == 0 and part_blocks[-1] == tb.n_blocks
+    assert (np.diff(part_blocks) >= 1).all()  # each block in exactly one part
+    for w in range(tb.n_windows):  # a window's parts: consecutive, its blocks exactly
+        p0, p1 = window_parts[w], window_parts[w + 1]
+        assert p1 > p0 and (part_window[p0:p1] == w).all()
+        assert part_blocks[p0] == tb.window_blocks[w] and part_blocks[p1] == tb.window_blocks[w + 1]
+    if target >= tb.n_blocks:  # parts as small as the costs allow
+        cost = tsp.dedup_block_cost(meta)
+        assert np.add.reduceat(cost, part_blocks[:-1]).max() <= 2 * cost.max()
+    x = np.random.default_rng(5).standard_normal((shape[1], 16)).astype(np.float32)
+    want = tsp.blocked_spmm_reference(tb, torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(_emulate_dedup(tb, x, target), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_dedup_parts_fill_the_card():
+    # at ML-1M density (10 windows of 256 rows) a CTA a window would leave
+    # most of 132 SMs idle: the parts fill them in one wave, and a window
+    # with more blocks gets more parts
+    shape, rows, cols, vals, _ = _coo("dense_windows")
+    tb = tsp.pack_blocked_dedup(rows, cols, vals, shape, device="cpu", edge_block=64,
+                                row_block=32, unique_block=16)
+    target = tsp.dedup_target(tb, 128, 2, 132)
+    assert target == 132 * min(tsp._SM_SMEM // tsp._dedup_smem(tb, 2), 4)
+    per_sm_f32 = min(tsp._SM_SMEM // tsp._dedup_smem(tb, 4), 4)
+    assert tsp.dedup_target(tb, 256, 4, 132) == 132 * per_sm_f32 // 4  # f32: 64-feature slices
+    for t in (7, 40, 1000):
+        part_window, part_blocks, window_parts = tsp.dedup_parts(tb.window_blocks, t)
+        assert tb.n_windows <= part_window.shape[0] <= max(t, tb.n_windows)
+    per_window = np.diff(tsp.dedup_parts(tb.window_blocks, 40)[2])
+    nb = np.diff(tb.window_blocks)
+    assert per_window[np.argmax(nb)] == per_window.max() > 1
+    assert tsp.dedup_parts(tb.window_blocks, 1)[0].shape[0] == tb.n_windows
+    # with costs, a window holding a costly block is cut at that block, and
+    # no part of a window costs more than its even share plus one block
+    nb = int(np.diff(tb.window_blocks)[0])
+    cost = np.ones(tb.n_blocks)
+    cost[nb // 2] = nb
+    part_window, part_blocks, window_parts = tsp.dedup_parts(tb.window_blocks,
+                                                             4 * tb.n_windows, cost)
+    assert nb // 2 in part_blocks and window_parts[1] >= 2
+    part_cost = np.add.reduceat(cost, part_blocks[:-1])
+    w_cost = np.add.reduceat(cost, np.asarray(tb.window_blocks[:-1]))
+    share = w_cost[part_window] / np.diff(window_parts)[part_window]
+    assert (part_cost <= share + cost.max()).all()
+    with pytest.raises(ValueError, match="row_block <= 256"):
+        tsp.pack_blocked_dedup(rows, cols, vals, shape, device="cpu", row_block=512)
 
 
 def test_wrapper_refuses_other_devices():
