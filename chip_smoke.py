@@ -15,11 +15,15 @@ Phases, in order; any failure exits non-zero:
      profiler device times beside the plain version's, one
      `torch.sparse.mm` call's on the same CSR matrix (for the int8
      kernels on the dequantised table: it does not quantise), and the
-     bound; the previous designs' wrapper time beside each row of kernels
-     1 and 2; two
-     calls compared bit for bit (kernel 1 must repeat exactly, the others
-     report); kernel 2 beside kernel 1 on the same ML-1M-density layouts,
-     which says whether `dedup_auto` picks the faster kernel on this card;
+     bound; the parent's (PR 4's) wrapper time beside each row of kernels
+     1-3, and kernel 3's wrapper with the torch quantisation it had then;
+     each wrapper's device time per step split by kernel name; two calls
+     compared bit for bit (kernel 1 and the int8 kernels must repeat
+     exactly, and the int8 kernels equal their plain version exactly; the
+     others report); the int8 quantisation kernel (`quantize_int8_fused`)
+     on each X, bit for bit with `quantize_int8`, and its device time;
+     kernel 2 beside kernel 1 on the same ML-1M-density layouts, which says
+     whether `dedup_auto` picks the faster kernel on this card;
   4. the serving slice at the LastFM shape, full width: KHGRec encode
      through the kernels (8 launches), the same encode through the plain
      version, ranking metrics over every test user, export, and top-k
@@ -32,7 +36,9 @@ Phases, in order; any failure exits non-zero:
      holds one training step through the kernels against the same step
      through the plain versions (loss and every parameter's gradient),
      counts exactly 16 launches of its kernel per step (8 forward, 8
-     backward), then trains: a whole `Recommender.train()` epoch with its
+     backward; the int8 phases also 16 of the quantisation kernel, and
+     their step through the kernels equals the plain one exactly), then
+     trains: a whole `Recommender.train()` epoch with its
      evaluation in the first phase (Recall@20 beside the untrained
      state's), 5 `Trainer` steps in the others; it reports the loss and
      the step's wall time, device time and idle share;
@@ -40,9 +46,10 @@ Phases, in order; any failure exits non-zero:
      scripts/bench_gather_fusion.py) at its shapes, launches counted:
      kernels 5 and 6 (`resident_row_gather`, `fused_window_spmm`) in f32
      and bf16 against their plain versions (the gather exactly, the fused
-     product within KERNEL_RTOL, and in f32 also against scipy's product),
-     with the device times of each kernel, its plain version, its library
-     call and kernel 1 on the same layout;
+     product within KERNEL_RTOL, and in f32 also against scipy's product;
+     two calls of the fused product bit for bit), with the device times of
+     each kernel beside PR 4's, its plain version, its library call and
+     kernel 1 on the same layout;
   8. HGNN_HD3 at full width at the LastFM shape (its MODEL_DEFAULTS, mode
      full, bf16 operand): the encode through the kernels against the plain
      versions, one training step likewise (loss and every gradient), 24
@@ -59,7 +66,9 @@ Phases, in order; any failure exits non-zero:
 The line before the last is the card's name and power limit; before it,
 one JSON line with a row per kernel (kernels 1-4: times per training step
 at the kernel's main-path shape, launches per step; kernels 5-6: times per
-call at the probe's shapes, launches on the probe path). The last line is
+call at the probe's shapes, launches on the probe path; the int8
+quantisation: per training step at ML-1M density, the dedup_int8 phase's
+launches). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Weights are random, drawn from a seeded generator. It imports nothing of
 JAX or of the JAX package, and exits non-zero without a CUDA card or
@@ -91,7 +100,8 @@ SEED = 0
 TIMED_ITERS = 20
 
 # kernel vs plain version: the same products summed in another f32 order
-# (the dedup kernel's float atomics in an order that changes run to run)
+# (each kernel's fixed order, the plain version's `index_add_`); the int8
+# kernels' f64 sums are exact and must equal the plain version's bits
 KERNEL_RTOL = 1e-5
 # encode through the kernels vs through the plain version: that f32 order
 # can flip a bf16 rounding of the next layer's table (2^-8 relative on
@@ -133,30 +143,41 @@ KHGREC_TRAIN = dict(hyper_dim=D, relation_dim=32, n_layers=2, batch_size=2048,
                     batch_size_kg=8192, mode="full", drop_rate=0.2, p=0.3, temp=1.0,
                     cl_rate=0.01, lrate=0.001, compute_dtype="bfloat16", eval_user_batch=512)
 SOURCES = ("segment_spmm", "gather_fusion")  # csrc/<name>.cu
-# figures of the kernels' previous designs (row chunks with float atomics, a CTA per dedup
-# block with float atomics; this script on an NVIDIA H100 80GB HBM3 at 700 W), printed beside
-# this run's: each phase-3 row's wrapper device ms per call for kernels 1 and 2, by (kernel,
-# graph.matrix.direction, mode), and each kernel's per-step ms at its main-path shape
+# figures of the parent's kernels (PR 4's code; this script on an NVIDIA H100 80GB HBM3 at
+# 700 W before the int8 and probe kernels were redesigned), printed beside this run's: each
+# phase-3 row's wrapper device ms per call for kernels 1-3, by (kernel,
+# graph.matrix.direction, mode), and each kernel's per-step ms at its main-path shape as PR 4
+# recorded it
 BEFORE_WRAPPER_MS = {  # (kernel, graph.matrix.direction): {mode: ms}
-    ("segment_spmm_rows", "lastfm.cf.fwd"): {"f32": 0.0170, "bf16": 0.0180},
-    ("segment_spmm_rows", "lastfm.cf.bwd"): {"f32": 0.0170, "bf16": 0.0180},
-    ("segment_spmm_rows", "lastfm.kg.fwd"): {"f32": 0.0242, "bf16": 0.0284},
-    ("segment_spmm_rows", "lastfm.kg.bwd"): {"f32": 0.0242, "bf16": 0.0288},
-    ("segment_spmm_rows", "ml1m.cf.fwd"): {"f32": 0.0196, "bf16": 0.0194},
-    ("segment_spmm_rows", "ml1m.cf.bwd"): {"f32": 0.0190, "bf16": 0.0194},
-    ("segment_spmm_rows", "ml1m.kg.fwd"): {"f32": 0.0213, "bf16": 0.0194},
-    ("segment_spmm_rows", "ml1m.kg.bwd"): {"f32": 0.0211, "bf16": 0.0196},
-    ("segment_spmm_dedup", "lastfm.cf.fwd"): {"f32": 0.0637, "bf16": 0.0455},
-    ("segment_spmm_dedup", "lastfm.cf.bwd"): {"f32": 0.0640, "bf16": 0.0447},
-    ("segment_spmm_dedup", "lastfm.kg.fwd"): {"f32": 0.0934, "bf16": 0.0616},
-    ("segment_spmm_dedup", "lastfm.kg.bwd"): {"f32": 0.0933, "bf16": 0.0638},
-    ("segment_spmm_dedup", "ml1m.cf.fwd"): {"f32": 0.0801, "bf16": 0.0737},
-    ("segment_spmm_dedup", "ml1m.cf.bwd"): {"f32": 0.0843, "bf16": 0.0761},
-    ("segment_spmm_dedup", "ml1m.kg.fwd"): {"f32": 0.0807, "bf16": 0.0743},
-    ("segment_spmm_dedup", "ml1m.kg.bwd"): {"f32": 0.0828, "bf16": 0.0757},
+    ("segment_spmm_rows", "lastfm.cf.fwd"): {"f32": 0.0148, "bf16": 0.0157},
+    ("segment_spmm_rows", "lastfm.cf.bwd"): {"f32": 0.0149, "bf16": 0.0158},
+    ("segment_spmm_rows", "lastfm.kg.fwd"): {"f32": 0.0201, "bf16": 0.0219},
+    ("segment_spmm_rows", "lastfm.kg.bwd"): {"f32": 0.0207, "bf16": 0.0230},
+    ("segment_spmm_rows", "ml1m.cf.fwd"): {"f32": 0.0196, "bf16": 0.0183},
+    ("segment_spmm_rows", "ml1m.cf.bwd"): {"f32": 0.0196, "bf16": 0.0182},
+    ("segment_spmm_rows", "ml1m.kg.fwd"): {"f32": 0.0204, "bf16": 0.0189},
+    ("segment_spmm_rows", "ml1m.kg.bwd"): {"f32": 0.0204, "bf16": 0.0189},
+    ("segment_spmm_dedup", "lastfm.cf.fwd"): {"f32": 0.0719, "bf16": 0.0497},
+    ("segment_spmm_dedup", "lastfm.cf.bwd"): {"f32": 0.0718, "bf16": 0.0489},
+    ("segment_spmm_dedup", "lastfm.kg.fwd"): {"f32": 0.3291, "bf16": 0.0607},
+    ("segment_spmm_dedup", "lastfm.kg.bwd"): {"f32": 0.3291, "bf16": 0.0612},
+    ("segment_spmm_dedup", "ml1m.cf.fwd"): {"f32": 0.0575, "bf16": 0.0249},
+    ("segment_spmm_dedup", "ml1m.cf.bwd"): {"f32": 0.0573, "bf16": 0.0256},
+    ("segment_spmm_dedup", "ml1m.kg.fwd"): {"f32": 0.0529, "bf16": 0.0242},
+    ("segment_spmm_dedup", "ml1m.kg.bwd"): {"f32": 0.0534, "bf16": 0.0240},
+    ("segment_spmm_rows_int8", "lastfm.cf.fwd"): {"int8": 0.0731},
+    ("segment_spmm_rows_int8", "lastfm.cf.bwd"): {"int8": 0.0725},
+    ("segment_spmm_rows_int8", "lastfm.kg.fwd"): {"int8": 0.0968},
+    ("segment_spmm_rows_int8", "lastfm.kg.bwd"): {"int8": 0.0969},
+    ("segment_spmm_rows_int8", "ml1m.cf.fwd"): {"int8": 0.0465},
+    ("segment_spmm_rows_int8", "ml1m.cf.bwd"): {"int8": 0.0468},
+    ("segment_spmm_rows_int8", "ml1m.kg.fwd"): {"int8": 0.0490},
+    ("segment_spmm_rows_int8", "ml1m.kg.bwd"): {"int8": 0.0473},
 }
-BEFORE_STEP_MS = {"segment_spmm_rows": 0.3750, "segment_spmm_dedup": 1.1913,
-               "segment_spmm_rows_int8": 1.6449, "segment_spmm_dedup_int8": 3.6139}
+BEFORE_STEP_MS = {"segment_spmm_rows": 0.3051, "segment_spmm_dedup": 0.3906,
+                  "segment_spmm_rows_int8": 1.3521, "segment_spmm_dedup_int8": 3.5692}
+# the int8 quantisation kernel's row: per training step at the dedup_int8 phase's shape
+QUANT_SHAPE = "ml1m"
 
 _PROBE_SRC = "scripts/bench_gather_fusion.py"
 PROBE_KERNELS = {
@@ -169,6 +190,8 @@ PROBE_KERNELS = {
                           "4b. fused_window_spmm bf16", "4p. fused_window_spmm plain f32",
                           "6. torch.sparse.mm"),
 }
+# PR 4's kernel-6 design (a CTA per row window, shared float atomics), ms per call (f32, bf16)
+BEFORE_PROBE_MS = {"fused_window_spmm": (0.3851, 0.4779)}
 # HGNN_HD3's SpMM launches: 6 products on the CF adjacency in the local view
 # (the ED-HNN layer's two two-hop convs, the cap's one), 2 on it and 16 on
 # b_hyper in the group view (two HWNN layers of 4 two-hops each, the cap's
@@ -285,7 +308,9 @@ def make_graphs():
 def phase_kernels(graphs) -> list[dict]:
     """Every kernel in each of its modes on every (matrix, direction) of
     the main path; a JSON row per kernel, its times per training step at
-    its main-path shape and mode."""
+    its main-path shape and mode (the int8 quantisation's at QUANT_SHAPE)."""
+    from unittest import mock
+
     import numpy as np
     import torch
 
@@ -294,10 +319,35 @@ def phase_kernels(graphs) -> list[dict]:
     gen = torch.Generator(DEVICE).manual_seed(SEED)
     rows = []
     per_step = {}  # (kernel, graph, mode): kernel-alone ms per training step
+    quant = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)  # per step at QUANT_SHAPE
+    quantised = set()
+
+    def check_quantize(gname, tag, x, q_plain, s_plain):
+        """The quantisation kernel on one X: bit for bit with the torch
+        passes, its device time (and theirs) beside its bound."""
+        before = S.LAUNCHES["quantize_int8"]
+        q, sc = S.quantize_int8_fused(x)
+        torch.cuda.synchronize()
+        if S.LAUNCHES["quantize_int8"] != before + 1:
+            raise AssertionError("quantize_int8_fused launched no kernel")
+        if not (torch.equal(q, q_plain) and torch.equal(sc, s_plain)):
+            raise AssertionError(f"quantize_int8 kernel differs from the torch passes on {tag}")
+        k_ms, k_split = device_ms(lambda: S.quantize_int8_fused(x))
+        p_ms = device_ms(lambda: S.quantize_int8(x))[0]
+        m, d = x.shape
+        b_ms = (4 * m * d + m * d + 4 * d) / HBM_BYTES_PER_S * 1e3  # X read, q and s written
+        log(f"[quantize] {tag} X {m}x{d}: bit for bit with the torch passes | device ms: kernel "
+            f"{k_ms:.4f} ({', '.join(f'{n[:24]} {t:.4f}' for n, t in k_split.items())}) torch "
+            f"passes {p_ms:.4f} bound {b_ms:.4f} (bytes)")
+        if gname == QUANT_SHAPE:
+            quant["ms"] += CALLS_PER_STEP * k_ms
+            quant["plain_ms"] += CALLS_PER_STEP * p_ms
+            quant["bound_ms"] += CALLS_PER_STEP * b_ms
     for kname, (layout, modes, main_shape, main_mode, replaces) in KERNELS.items():
         pack = S.pack_blocked_dedup if layout == "dedup" else S.pack_blocked
         worst = 0.0
         main = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+        main_split = {}  # the wrapper's device time per step at the main shape, by kernel name
         bound_by = set()
         for gname, g in graphs.items():
             for mname, mat in g["mats"].items():
@@ -321,6 +371,9 @@ def phase_kernels(graphs) -> list[dict]:
                             # dequantised table (it does not quantise)
                             q, sc = S.quantize_int8(x)
                             x_lib = q.float() * sc
+                            if (gname, mname, direction) not in quantised:
+                                quantised.add((gname, mname, direction))
+                                check_quantize(gname, f"{gname}.{mname}.{direction}", x, q, sc)
                         else:
                             x_lib = x
                         lib_ms = device_ms(lambda: torch.sparse.mm(a_csr, x_lib))[0]
@@ -337,6 +390,11 @@ def phase_kernels(graphs) -> list[dict]:
                             ok = ok and err_exact <= KERNEL_RTOL * max(scale, 1.0)
                         k_ms, k_split = device_ms(lambda: S.blocked_spmm(blk, x))
                         k_call = cuda_ms(lambda: S.blocked_spmm(blk, x))
+                        old_quant = ""
+                        if kname == "segment_spmm_rows_int8":  # PR 4's wrapper: torch passes
+                            with mock.patch.object(S, "quantize_int8_fused", S.quantize_int8):
+                                t_old = device_ms(lambda: S.blocked_spmm(blk, x))[0]
+                            old_quant = f"; with the torch quantisation {t_old:.4f}"
                         p_ms = device_ms(lambda: S.blocked_spmm_reference(blk, x), iters=5)[0]
                         lib_label = "torch.sparse.mm" + (" (dequantised)" if mode == "int8"
                                                          else "")
@@ -349,17 +407,22 @@ def phase_kernels(graphs) -> list[dict]:
                             f"{m.shape[0]}x{m.shape[1]} nnz {m.nnz} blocks {blk.n_blocks}: "
                             f"max_abs_err {err:.3e} rel {err / max(scale, 1e-30):.3e} "
                             f"(vs scipy f32 {err_exact:.3e}) | device ms: wrapper {k_ms:.4f} "
-                            f"(kernel alone {k_alone:.4f}; previous design's wrapper "
-                            f"{'-' if before is None else f'{before:.4f}'}) plain {p_ms:.4f} "
+                            f"(kernel alone {k_alone:.4f}; PR 4's wrapper "
+                            f"{'-' if before is None else f'{before:.4f}'}{old_quant}) "
+                            f"plain {p_ms:.4f} "
                             f"{lib_label} {lib_ms:.4f} bound {b_ms:.4f} ({b_by}) | "
                             f"one call between events {k_call:.4f} ms | two calls "
                             f"{'bitwise equal' if repeats else 'DIFFER'} {'OK' if ok else 'FAIL'}")
                         if not ok:
                             raise AssertionError(f"{kname} disagrees with its plain version "
                                                  f"on {gname}.{mname}.{direction} {mode}")
-                        if kname == "segment_spmm_rows" and not repeats:
+                        if (kname == "segment_spmm_rows" or mode == "int8") and not repeats:
                             raise AssertionError(f"{kname}: two calls on {gname}.{mname}."
                                                  f"{direction} {mode} gave different bits")
+                        if mode == "int8" and not torch.equal(got, ref):
+                            raise AssertionError(f"{kname} differs from its plain version on "
+                                                 f"{gname}.{mname}.{direction}: its f64 sums "
+                                                 f"are exact, the bits must agree")
                         worst = max(worst, err)
                         if gname == main_shape and mode == main_mode:
                             main["ms"] += CALLS_PER_STEP * k_ms
@@ -367,6 +430,8 @@ def phase_kernels(graphs) -> list[dict]:
                             main["library_ms"] += CALLS_PER_STEP * lib_ms
                             main["bound_ms"] += CALLS_PER_STEP * b_ms
                             bound_by.add(b_by)
+                            for name, t in k_split.items():
+                                main_split[name] = main_split.get(name, 0.0) + CALLS_PER_STEP * t
         rows.append(dict(
             name=kname, route="cuda",
             source="hypergraph_diffusion_for_recommendation_tpu_torch/csrc/segment_spmm.cu",
@@ -374,8 +439,18 @@ def phase_kernels(graphs) -> list[dict]:
             bound_by="bytes" if bound_by == {"bytes"} else "operations", **main,
         ))
         log(f"[kernel] {kname} per step at {main_shape} {main_mode}: wrapper {main['ms']:.4f} ms "
-            f"(previous design {BEFORE_STEP_MS[kname]:.4f}), bound {main['bound_ms']:.4f}, "
+            f"(PR 4 {BEFORE_STEP_MS[kname]:.4f}), bound {main['bound_ms']:.4f}, "
             f"torch.sparse.mm {main['library_ms']:.4f}")
+        for name, t in sorted(main_split.items(), key=lambda kv: -kv[1]):
+            log(f"[kernel]   {kname} per step, split: {t:.4f}  {name[:100]}")
+    rows.append(dict(
+        name="quantize_int8", route="cuda",
+        source="hypergraph_diffusion_for_recommendation_tpu_torch/csrc/segment_spmm.cu",
+        replaces=f"{_TPU_SRC}:569", launches=0, max_abs_err=0.0, bound_by="bytes",
+        library_ms=None, **quant,
+    ))
+    log(f"[quantize] quantize_int8 per step at {QUANT_SHAPE} (16 calls): kernel {quant['ms']:.4f} "
+        f"ms, torch passes {quant['plain_ms']:.4f}, bound {quant['bound_ms']:.4f}")
     # does `dedup_auto` (which picks the dedup layout at ML-1M density) pick the faster kernel?
     for mode in ("bf16", "f32"):
         k2 = per_step[("segment_spmm_dedup", "ml1m", mode)]
@@ -549,12 +624,14 @@ def phase_train(shape: str, data, gather_layout: str, kname: str, card: str,
         torch.cuda.synchronize()
         return float(loss.detach()), grads
 
-    # --- one step through the kernels (counted) and through the plain versions
+    # --- one step through the kernels (counted) and through the plain versions;
+    # an int8 layout quantises X on the card before each of its kernel's launches
+    per_call = {kname: 1, "quantize_int8": 1} if int8 else {kname: 1}
     for k in S.LAUNCHES:
         S.LAUNCHES[k] = 0
     loss_k, grads_k = loss_and_grads()
     step_launches = dict(S.LAUNCHES)
-    want = {k: (16 if k == kname else 0) for k in S.LAUNCHES}
+    want = {k: 16 * per_call.get(k, 0) for k in S.LAUNCHES}
     if step_launches != want:
         raise AssertionError(f"{tag}: one training step launched {step_launches}, expected {want}")
     with mock.patch.object(sparse, "blocked_spmm", S.blocked_spmm_reference):
@@ -573,6 +650,10 @@ def phase_train(shape: str, data, gather_layout: str, kname: str, card: str,
         f"{TRAIN_RTOL:g}); {step_launches[kname]} launches of {kname} per step")
     if not loss_rel <= LOSS_RTOL or grad_rel[worst] > TRAIN_RTOL:
         raise AssertionError(f"{tag}: the step through the kernels differs from the plain one")
+    if int8 and (loss_k != loss_p or any(not torch.equal(gk, gp)
+                                         for gk, gp in zip(grads_k, grads_p))):
+        raise AssertionError(f"{tag}: the int8 kernels' exact sums must give the plain step's "
+                             f"loss and gradients bit for bit")
 
     # --- the main path, counted
     untrained = None
@@ -595,7 +676,7 @@ def phase_train(shape: str, data, gather_layout: str, kname: str, card: str,
     torch.cuda.synchronize()
     run_s = time.time() - t0
     launches = dict(S.LAUNCHES)
-    want = {k: (16 * n_steps + 8 * n_encodes if k == kname else 0) for k in S.LAUNCHES}
+    want = {k: (16 * n_steps + 8 * n_encodes) * per_call.get(k, 0) for k in S.LAUNCHES}
     if launches != want:
         raise AssertionError(f"{tag}: {n_steps} steps and {n_encodes} encodes launched "
                              f"{launches}, expected {want}")
@@ -614,6 +695,7 @@ def phase_train(shape: str, data, gather_layout: str, kname: str, card: str,
         shape=shape, gather_layout=gather_layout, kernel=kname, card=card,
         build_s=round(build_s, 3), n_train=int(bundle.cf.n_train), steps=n_steps,
         run_s=round(run_s, 3), launches=launches[kname], launches_per_step=step_launches[kname],
+        quantize_launches_per_step=step_launches["quantize_int8"],
         loss=loss, loss_kernels=loss_k, loss_plain=loss_p, loss_rel_err=loss_rel,
         worst_grad=worst, worst_grad_rel_err=grad_rel[worst],
         step_wall_ms=round(wall, 4), step_device_ms=round(dev, 4),
@@ -659,7 +741,10 @@ def phase_probe() -> list[dict]:
             raise AssertionError(f"resident_row_gather {mode} differs from its plain version")
         blk = probe.blocked.replace(bf16=mode == "bf16")
         got = G.fused_window_spmm(blk, probe.x)
+        again = G.fused_window_spmm(blk, probe.x)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):  # one warp a row, a fixed order, no atomics
+            raise AssertionError(f"fused_window_spmm {mode}: two calls gave different bits")
         ref = G.fused_window_spmm_reference(blk, probe.x)
         scale = max(float(ref.abs().max()), 1.0)
         err = float((got - ref).abs().max())
@@ -668,7 +753,7 @@ def phase_probe() -> list[dict]:
         if mode == "f32":
             ok = ok and err_exact <= KERNEL_RTOL * scale
         log(f"[probe] fused_window_spmm {mode}: max_abs_err {err:.3e} vs plain, {err_exact:.3e} "
-            f"vs scipy f32 (scale {scale:.3f}) {'OK' if ok else 'FAIL'}")
+            f"vs scipy f32 (scale {scale:.3f}); two calls bitwise equal {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"fused_window_spmm {mode} disagrees")
         worst["fused_window_spmm"] = max(worst["fused_window_spmm"], err)
@@ -694,9 +779,12 @@ def phase_probe() -> list[dict]:
             ms=ms[k_probe], plain_ms=ms[p_probe], bound_ms=b_ms, bound_by=b_by,
             library_ms=ms[lib_probe],
         ))
+        before = BEFORE_PROBE_MS.get(kname)
         log(f"[probe] {kname}: {launches[kname]} launches on the probe path; device ms per call "
-            f"f32 {ms[k_probe]:.4f} (bf16 {ms[kb_probe]:.4f}), plain "
-            f"{ms[p_probe]:.4f}, {lib_probe[3:]} {ms[lib_probe]:.4f}, bound {b_ms:.4f} ({b_by})")
+            f"f32 {ms[k_probe]:.4f} (bf16 {ms[kb_probe]:.4f})"
+            + (f", PR 4's design f32 {before[0]:.4f} (bf16 {before[1]:.4f})" if before else "")
+            + f", plain {ms[p_probe]:.4f}, {lib_probe[3:]} {ms[lib_probe]:.4f}, bound "
+            f"{b_ms:.4f} ({b_by})")
     log(f"[probe] kernel 1 (segment_spmm_rows) on the same layout: f32 "
         f"{ms['5. blocked_spmm f32']:.4f} ms, bf16 {ms['5b. blocked_spmm bf16']:.4f} ms")
     return rows
@@ -979,6 +1067,9 @@ def main() -> int:
         t = phase_train(shape, graphs[shape]["data"], gather_layout, kname, card, fit=i == 0)
         # per training step, as the row's times
         next(r for r in rows if r["name"] == kname)["launches"] = t["launches_per_step"]
+        if shape == QUANT_SHAPE and kname.endswith("_int8"):
+            next(r for r in rows if r["name"] == "quantize_int8")["launches"] = (
+                t["quantize_launches_per_step"])
         trains.append(t)
     rows += phase_probe()
     lastfm = graphs["lastfm"]["data"]

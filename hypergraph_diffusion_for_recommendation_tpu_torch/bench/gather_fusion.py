@@ -36,9 +36,12 @@ from ..ops.kernels import gather_fusion as G
 from ..ops.kernels import segment_spmm as S
 
 N, D, NNZ, EB = 19712, 128, 262144, 1024
-# a kernel against its plain version: the same products summed in another
-# f32 order (the fused kernel's shared-memory atomics in an order that
-# changes from run to run), relative to the output's scale
+# a kernel against its plain version, relative to the output's scale: the
+# fused kernel sums each row in a fixed order of its own (in f32 with
+# fused multiply-adds, its teams' partial sums added by a shuffle tree),
+# the plain version rounds each product and sums them by `index_add_`:
+# the same products summed in another f32 order. Two calls of the kernel
+# give the same bits.
 KERNEL_RTOL = 1e-5
 
 

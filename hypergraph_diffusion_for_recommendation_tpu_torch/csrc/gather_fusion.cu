@@ -19,18 +19,27 @@
 //    software cache of X. The gather is a warp per output row: each lane copies 16 bytes (a row of
 //    128 f32 is one 512 B read and one 512 B write per warp; in bf16 half the lanes copy 256 B).
 //    An index outside [0, n) is clamped into it: the kernel reads nothing outside X.
-//  * The fused product: the TPU grid walks a window's edge blocks in order and accumulates the
-//    window's [rb, d] f32 tile in the output block across grid steps. On Hopper nothing carries
-//    over between CTAs, so one CTA takes a whole window: it zeroes the [rb, d] f32 tile in shared
-//    memory (128 KB at rb 256, d 128, through the dynamic shared memory opt-in), walks the
-//    window's blocks, adds each live slot's val * X[col] into its row of the tile with shared
-//    float atomics, and writes the tile once with coalesced float4 stores: no global atomics and
-//    no zero fill of the output. An empty window has one all-pad block (pack_blocked), so its
-//    tile is written as zeros. A warp reads 32 slots' (row, col, val) in one coalesced load,
-//    broadcasts them by shuffles and keeps kSlots X rows in flight before their adds; a lane
-//    holds the features lane, lane + 32, ..., so a warp's 32 shared atomics hit 32 banks.
-//  * Known limit: a CTA per window gives 77 CTAs at the probe's N = 19712, rb = 256, on 132 SMs;
-//    a window's edges (about 3400 at the probe's density) are summed by the 8 warps of one SM.
+//  * The fused product reads only what the TPU kernel reads: the pack_blocked arrays wmap, cols,
+//    local_rows and vals, and X; none of the base SpMM kernel's port-only work lists. The TPU grid
+//    walks a window's edge blocks in order and accumulates the window's [rb, d] tile across grid
+//    steps; on Hopper nothing carries over between CTAs, so the work is cut by rows instead: a CTA
+//    takes kRowsPerCta rows of one window (grid n_windows x rb / 32: 616 CTAs at the probe, a
+//    single wave of some 37 warps an SM). It finds its window's slot range by a search on wmap and
+//    its rows' slot bounds by a search on local_rows over that range (within a window local_rows
+//    does not decrease: pack_blocked fills a window's slots in row order and puts its pads, = rb,
+//    at the tail), both searches by the whole CTA, 256 entries a round (two rounds each at the
+//    probe), then one pass over its slots marks where each row starts. Each warp then sums
+//    kRowsPerCta / 8 consecutive rows one at a time in registers, as the base SpMM kernel does: a
+//    lane reads 16 B of an X row (4 f32 or 8 bf16 features), so a team of G lanes covers a row;
+//    the warp holds 32 slots' (col, val), one a lane, broadcasts them by shuffles, keeps kGather X
+//    rows in flight a team, loads the next row's first 32 slots while this row's gathers are in
+//    flight, and adds the teams' sums by a fixed shuffle tree. Every output row is written once by
+//    one warp (an empty row, or a row of an empty window, as zeros): no shared tile, no atomics of
+//    any kind, no zero fill, and two calls give the same bits.
+//  * What limits it now: the latency of the dependent L2 reads (two searches of two rounds, the
+//    slot loads, then a round of gathers per 4 edges of a row in f32, per 8 in bf16 with its two
+//    teams, at the probe's 13 edges a row), not bytes: the gathers move nnz * d * 4 B = 134 MB in
+//    f32 out of the L2, not the 10 MB of X once.
 //  * bf16 mode follows the TPU kernel: X arrives as bf16 (the wrapper casts the table once), each
 //    edge value is rounded to bf16, their product is rounded to bf16 (the Pallas kernel
 //    multiplies the two bf16 operands in bf16), and the sums are f32.
@@ -45,25 +54,53 @@ constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kWarpsPerCta = kThreads / kWarp;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSlots = 4;    // slots whose X rows a warp of the fused kernel has in flight
-constexpr int kMaxFeat = 8;  // features per lane in the fused kernel: d <= 256
+constexpr int kRowsPerCta = 32;  // window rows a CTA of the fused kernel sums: 4 a warp
+constexpr int kGather = 4;       // X rows a team of the fused kernel keeps in flight
 
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// A lane's 16-byte share of an X row in the fused kernel: kN features; round() rounds an edge
+// value and add() adds its products as the TPU kernel rounds them.
 template <typename T>
-struct Elem;
-
-// product: one slot's contribution to one feature, rounded as the TPU kernel rounds it
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float product(float v, float x) { return v * x; }
-};
+struct Lane;
 
 template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float product(float v, __nv_bfloat16 x) {
-    const float vb = __bfloat162float(__float2bfloat16(v));
-    return __bfloat162float(__float2bfloat16(vb * __bfloat162float(x)));
+struct Lane<float> {
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ float round(float v) { return v; }
+  static __device__ __forceinline__ void add(float (&acc)[kN], float v, const uint4& r) {
+    acc[0] = fmaf(v, __uint_as_float(r.x), acc[0]);
+    acc[1] = fmaf(v, __uint_as_float(r.y), acc[1]);
+    acc[2] = fmaf(v, __uint_as_float(r.z), acc[2]);
+    acc[3] = fmaf(v, __uint_as_float(r.w), acc[3]);
   }
 };
+
+template <>
+struct Lane<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ float round(float v) { return bf16_round(v); }
+  static __device__ __forceinline__ void add(float (&acc)[kN], float v, const uint4& r) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+      acc[2 * k] += bf16_round(v * f.x);  // bf16 x bf16 is exact in f32, then rounded to bf16
+      acc[2 * k + 1] += bf16_round(v * f.y);
+    }
+  }
+};
+
+__device__ __forceinline__ void store(float* o, const float (&a)[4]) {
+  *reinterpret_cast<float4*>(o) = make_float4(a[0], a[1], a[2], a[3]);
+}
+
+__device__ __forceinline__ void store(float* o, const float (&a)[8]) {
+  reinterpret_cast<float4*>(o)[0] = make_float4(a[0], a[1], a[2], a[3]);
+  reinterpret_cast<float4*>(o)[1] = make_float4(a[4], a[5], a[6], a[7]);
+}
 
 // One warp per output row: lane i copies the 16-byte vectors i, i + 32, ... of the row.
 __global__ void __launch_bounds__(kThreads) resident_row_gather_kernel(
@@ -78,93 +115,150 @@ __global__ void __launch_bounds__(kThreads) resident_row_gather_kernel(
   for (int v = lane; v < vecs; v += kWarp) o[v] = s[v];
 }
 
-__device__ __forceinline__ int first_at_least(const int* a, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
+// For two keys at once, the first index i in [lo, hi) of the non-decreasing `a` with a[i] >= key
+// (hi if none), found by the whole CTA: every thread calls it and gets both answers. A round
+// samples kThreads evenly spaced entries of each range; the entries below the key are a prefix,
+// counted by a barrier, and the range shrinks to the stretch after the last of them.
+__device__ int2 cta_first_at_least(const int* __restrict__ a, int lo, int hi, int key0,
+                                   int key1) {
+  int lo0 = lo, hi0 = hi, lo1 = lo, hi1 = hi;
+  while (lo0 < hi0 || lo1 < hi1) {
+    const int st0 = (hi0 - lo0 + kThreads - 1) / kThreads;
+    const int st1 = (hi1 - lo1 + kThreads - 1) / kThreads;
+    const int i0 = lo0 + threadIdx.x * st0;
+    const int i1 = lo1 + threadIdx.x * st1;
+    const int c0 = __syncthreads_count(i0 < hi0 && __ldg(a + i0) < key0);
+    const int c1 = __syncthreads_count(i1 < hi1 && __ldg(a + i1) < key1);
+    if (lo0 < hi0) {
+      if (c0 == 0) {
+        hi0 = lo0;
+      } else {
+        const int last = lo0 + (c0 - 1) * st0;  // the last sampled entry below key0
+        hi0 = min(hi0, last + st0);
+        lo0 = last + 1;
+      }
+    }
+    if (lo1 < hi1) {
+      if (c1 == 0) {
+        hi1 = lo1;
+      } else {
+        const int last = lo1 + (c1 - 1) * st1;
+        hi1 = min(hi1, last + st1);
+        lo1 = last + 1;
+      }
     }
   }
-  return lo;
+  return make_int2(lo0, lo1);
 }
 
-// One CTA per row window (grid n_windows): the window's [rb, d] f32 tile in shared memory.
+// acc += val * X[col] over the slots [s, e) of one row, the whole warp in lockstep: the warp holds
+// 32 slots' (col, val) at a time, one a lane (the first 32 come in my_col, my_val, prefetched by
+// the caller); team p takes the edges p * kGather + u of each round and keeps its kGather row
+// gathers in flight before their adds.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) fused_window_spmm_kernel(
-    const int* __restrict__ wmap, const int* __restrict__ cols, const int* __restrict__ lrows,
-    const float* __restrict__ vals, const T* __restrict__ x, float* __restrict__ out,
-    int n_blocks, int eb, int rb, int d) {
-  extern __shared__ __align__(16) float tile[];
-  const int win = blockIdx.x;
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int n_tile = rb * d;
-  for (int i = threadIdx.x; i < n_tile; i += kThreads) tile[i] = 0.f;
-  // the window's blocks [lo, hi) of the non-decreasing wmap (the trailing pad blocks repeat the
-  // last window and hold pad slots only)
-  const int64_t s0 = static_cast<int64_t>(first_at_least(wmap, n_blocks, win)) * eb;
-  const int64_t s1 = static_cast<int64_t>(first_at_least(wmap, n_blocks, win + 1)) * eb;
-  const int per_lane = d / kWarp;
-  __syncthreads();
-
-  for (int64_t t0 = s0 + warp * kWarp; t0 < s1; t0 += kThreads) {
-    const int64_t t = t0 + lane;
-    int my_row = rb;  // rb = a pad slot
-    int my_col = 0;
-    float my_val = 0.f;
-    if (t < s1) {
-      my_row = lrows[t];
-      if (my_row < rb) {
-        my_col = cols[t];
-        my_val = vals[t];
-      }
+__device__ __forceinline__ void row_sum(const int* __restrict__ cols,
+                                        const float* __restrict__ vals, const T* __restrict__ x,
+                                        int s, int e, int d, int feat, int lane, int step,
+                                        int team_off, int my_col, float my_val,
+                                        float (&acc)[Lane<T>::kN]) {
+  using L = Lane<T>;
+  const bool active = feat < d;
+  for (int t0 = s; t0 < e; t0 += kWarp) {
+    if (t0 != s) {
+      const int t = t0 + lane;
+      my_col = t < e ? __ldg(cols + t) : 0;
+      my_val = t < e ? L::round(__ldg(vals + t)) : 0.f;
     }
-    for (int j0 = 0; j0 < kWarp; j0 += kSlots) {
-      int row[kSlots];
-      float p[kSlots][kMaxFeat];
+    const int n = min(kWarp, e - t0);
+    for (int r0 = 0; r0 < n; r0 += step) {
+      uint4 raw[kGather];
 #pragma unroll
-      for (int u = 0; u < kSlots; ++u) {
-        row[u] = __shfl_sync(kFull, my_row, j0 + u);
-        const int col = __shfl_sync(kFull, my_col, j0 + u);
-        const float v = __shfl_sync(kFull, my_val, j0 + u);
-        const T* xr = x + static_cast<int64_t>(col) * d + lane;
-#pragma unroll
-        for (int k = 0; k < kMaxFeat; ++k) {
-          p[u][k] = (k < per_lane && row[u] < rb) ? Elem<T>::product(v, xr[k * kWarp]) : 0.f;
-        }
+      for (int u = 0; u < kGather; ++u) {
+        const int j = r0 + team_off + u;
+        const int col = __shfl_sync(kFull, my_col, j & (kWarp - 1));
+        raw[u] = active && j < n
+                     ? __ldg(reinterpret_cast<const uint4*>(x + static_cast<int64_t>(col) * d + feat))
+                     : make_uint4(0, 0, 0, 0);
       }
 #pragma unroll
-      for (int u = 0; u < kSlots; ++u) {
-        if (row[u] >= rb) continue;  // uniform over the warp: the slot was broadcast
-        float* tr = tile + row[u] * d + lane;
-#pragma unroll
-        for (int k = 0; k < kMaxFeat; ++k) {
-          if (k < per_lane) atomicAdd(tr + k * kWarp, p[u][k]);
-        }
+      for (int u = 0; u < kGather; ++u) {
+        const int j = r0 + team_off + u;
+        const float v = __shfl_sync(kFull, my_val, j & (kWarp - 1));
+        if (active && j < n) L::add(acc, v, raw[u]);
       }
     }
   }
+}
+
+// Grid (n_windows, ceil(rb / kRowsPerCta)): CTA (w, y) writes the window rows y * 32 + i, i < 32,
+// of out [n_windows * rb, d] (see the header).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 4) fused_window_spmm_kernel(
+    const int* __restrict__ wmap, const int* __restrict__ cols, const int* __restrict__ lrows,
+    const float* __restrict__ vals, const T* __restrict__ x, float* __restrict__ out,
+    int n_blocks, int eb, int rb, int d, int lanes_log2) {
+  using L = Lane<T>;
+  __shared__ int bounds[kRowsPerCta + 1];  // row r0 + k's slots: [bounds[k], bounds[k + 1])
+  const int win = blockIdx.x;
+  const int r0 = blockIdx.y * kRowsPerCta;
+  const int nr = min(kRowsPerCta, rb - r0);
+  // the window's blocks (the trailing pad blocks repeat the last window and hold pads only),
+  // then the stretch of its slots that holds the rows [r0, r0 + nr)
+  const int2 wb = cta_first_at_least(wmap, 0, n_blocks, win, win + 1);
+  const int2 rs = cta_first_at_least(lrows, wb.x * eb, wb.y * eb, r0, r0 + nr);
+  // slot t of the stretch starts the rows (lrows[t - 1], lrows[t]]; its end, the rows after
+  for (int t = rs.x + threadIdx.x; t <= rs.y; t += kThreads) {
+    const int prev = t == rs.x ? r0 - 1 : __ldg(lrows + t - 1);
+    const int cur = t == rs.y ? r0 + nr : __ldg(lrows + t);
+    for (int r = prev + 1; r <= cur; ++r) bounds[r - r0] = t;
+  }
   __syncthreads();
-  float4* o = reinterpret_cast<float4*>(out + static_cast<int64_t>(win) * n_tile);
-  const float4* tv = reinterpret_cast<const float4*>(tile);
-  for (int i = threadIdx.x; i < n_tile / 4; i += kThreads) o[i] = tv[i];
+
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int G = 1 << lanes_log2;  // lanes a team spreads one X row over
+  const int q = lane & (G - 1);
+  const int step = (kWarp >> lanes_log2) * kGather;
+  const int team_off = (lane >> lanes_log2) * kGather;
+  const int fw = G * L::kN;  // features one pass covers
+  const int per = kRowsPerCta / kWarpsPerCta;
+  const int lo = min(nr, warp * per);
+  const int hi = min(nr, lo + per);
+  float* o = out + (static_cast<int64_t>(win) * rb + r0) * d;
+  for (int c0 = 0; c0 < d; c0 += fw) {
+    const int feat = c0 + q * L::kN;
+    int s = lo < hi ? bounds[lo] : 0;
+    int e = lo < hi ? bounds[lo + 1] : 0;
+    int pc = s + lane < e ? __ldg(cols + s + lane) : 0;
+    float pv = s + lane < e ? L::round(__ldg(vals + s + lane)) : 0.f;
+    for (int i = lo; i < hi; ++i) {
+      const int cs = s, ce = e, my_col = pc;
+      const float my_val = pv;
+      if (i + 1 < hi) {
+        s = bounds[i + 1];
+        e = bounds[i + 2];
+        pc = s + lane < e ? __ldg(cols + s + lane) : 0;
+        pv = s + lane < e ? L::round(__ldg(vals + s + lane)) : 0.f;
+      }
+      float acc[L::kN] = {};
+      row_sum<T>(cols, vals, x, cs, ce, d, feat, lane, step, team_off, my_col, my_val, acc);
+      for (int off = G; off < kWarp; off <<= 1) {  // the teams' sums, the same tree every call
+#pragma unroll
+        for (int k = 0; k < L::kN; ++k) acc[k] += __shfl_xor_sync(kFull, acc[k], off);
+      }
+      if (lane < G && feat < d) store(o + static_cast<int64_t>(i) * d + feat, acc);
+    }
+  }
 }
 
 template <typename T>
 int launch_fused(const int* wmap, const int* cols, const int* lrows, const float* vals,
                  const void* x, float* out, int n_blocks, int n_windows, int eb, int rb, int d,
-                 cudaStream_t stream) {
-  if (n_windows <= 0) return 0;
-  const int smem = rb * d * static_cast<int>(sizeof(float));
-  const cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(fused_window_spmm_kernel<T>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_window_spmm_kernel<T><<<n_windows, kThreads, smem, stream>>>(
-      wmap, cols, lrows, vals, static_cast<const T*>(x), out, n_blocks, eb, rb, d);
+                 int lanes_log2, cudaStream_t stream) {
+  if (n_windows <= 0 || rb <= 0) return 0;
+  const dim3 grid(n_windows, (rb + kRowsPerCta - 1) / kRowsPerCta);
+  fused_window_spmm_kernel<T><<<grid, kThreads, 0, stream>>>(
+      wmap, cols, lrows, vals, static_cast<const T*>(x), out, n_blocks, eb, rb, d, lanes_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -186,15 +280,16 @@ extern "C" int hd_resident_row_gather(const int* idx, const void* x, void* out, 
 }
 
 // hd_fused_window_spmm: out [n_windows * rb, d] f32, written whole, from the pack_blocked layout
-// ([n_blocks, eb] cols, local_rows, vals; wmap [n_blocks]) and x [ncols, d], f32 or (x_bf16 != 0)
-// bf16; d % 32 == 0, d <= 256, rb * d * 4 bytes of shared memory.
+// ([n_blocks, eb] cols, local_rows, vals; wmap [n_blocks]; n_blocks * eb < 2^31) and x [ncols, d],
+// f32 or (x_bf16 != 0) bf16, 16-byte aligned; d % 32 == 0, d <= 256; `lanes_log2` is log2 of the
+// lanes a team spreads one X row over (the wrapper's choice).
 extern "C" int hd_fused_window_spmm(const int* wmap, const int* cols, const int* lrows,
                                     const float* vals, const void* x, int x_bf16, float* out,
                                     int n_blocks, int n_windows, int eb, int rb, int d,
-                                    void* stream) {
+                                    int lanes_log2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_bf16 ? launch_fused<__nv_bfloat16>(wmap, cols, lrows, vals, x, out, n_blocks,
-                                              n_windows, eb, rb, d, s)
+                                              n_windows, eb, rb, d, lanes_log2, s)
                 : launch_fused<float>(wmap, cols, lrows, vals, x, out, n_blocks, n_windows, eb,
-                                      rb, d, s);
+                                      rb, d, lanes_log2, s);
 }

@@ -7,11 +7,13 @@
 //                               (pack_blocked_dedup)
 //   segment_spmm_rows_int8   <- _segment_matmul_int8_kernel       (:397), base layout, int8 X
 //   segment_spmm_dedup_int8  <- _segment_matmul_dedup_int8_kernel (:475), dedup layout, int8 X
-// segment_spmm_rows_int8 is the base kernel instantiated on an int8 table (Vec<int8_t>);
-// segment_spmm_dedup_int8 is a kernel of its own; both end in a dequantisation pass. The bf16
-// form of segment_spmm_dedup runs on the tensor cores (segment_spmm_dedup_mma_kernel). Python
-// binding, checks, the work lists, the quantisation of X and the plain versions:
-// ops/kernels/segment_spmm.py.
+// segment_spmm_rows_int8 is the base kernel instantiated on an int8 table (Vec<int8_t>), ending
+// in a dequantisation pass; segment_spmm_dedup_int8 runs on the dedup kernel's parts and work
+// lists and dequantises as it writes. Both take X quantised on the card by quantize_int8 (two
+// launches: column maxima, then the quantisation), the port of the XLA ops of the int8
+// branches (:569-571, :596-598). The bf16 form of segment_spmm_dedup runs on the tensor cores
+// (segment_spmm_dedup_mma_kernel). Python binding, checks, the work lists and the plain
+// versions: ops/kernels/segment_spmm.py.
 //
 // What bounds them on the H100. The work is one multiply-add per edge and feature (2 * nnz * d
 // FLOP), while each call must read the indices and values (8 B per edge in the base layout,
@@ -57,7 +59,7 @@
 //    casts it once), each edge value is rounded to bf16, the dedup weight W[r, u] (the f32 sum of
 //    a block's bf16-rounded values with that row and distinct column, consecutive slots in the
 //    packer's order) is rounded to bf16, and every product and sum is f32.
-//  * int8 mode follows the TPU int8 kernels: the wrapper quantises X per column
+//  * int8 mode follows the TPU int8 kernels: X is quantised per column
 //    (q = clip(round(X / s), +-127), s = max(max|X| / 127, 1e-12)), the kernels gather int8 rows,
 //    round each edge value and the dedup weight W to bf16 whatever the bf16 flag says, and scale
 //    each finished sum, rounded to f32, by s. Where the TPU kernel sums in f32, these sum in f64:
@@ -68,14 +70,32 @@
 //    agree bit for bit and training in int8 mode repeats exactly. segment_spmm_rows_int8 is the
 //    base kernel on the int8 table writing every row of an f64 scratch, which a second pass
 //    rounds and scales.
-//  * segment_spmm_dedup_int8 (not redesigned yet): a CTA per (row window, group of the window's
-//    blocks, 32-feature slice) keeps an [rb, 32] f64 tile of the window in shared memory. Per
-//    block it stages the block's slots and its <= ub distinct int8 row slices (32 B each) and
-//    marks each (row, column) run's first slot with W[r, u]; each warp owns the tile rows r with
-//    r % 8 == warp and adds its runs' W[r, u] * q[u] across the 32 features, one feature per
-//    lane: plain shared loads and stores, no atomics and no bank conflicts. At the end the CTA
-//    adds its nonzero tile entries into the zeroed f64 scratch, one f64 atomic each. A window
-//    with hub rows waits on the warps that own them.
+//  * The quantisation (quantize_int8, the wrapper's before either int8 kernel): two launches in
+//    place of six torch passes. column_amax_kernel takes the column maxima |X| of row chunks into
+//    a small partial table; quantise_kernel CTAs each reduce that table (the same maxima in any
+//    order: max is exact), form s with an IEEE f32 division (__fdiv_rn, not a reciprocal, as the
+//    plain version and JAX divide) and write q = clamp(rint(x / s)) for a chunk of rows, rint
+//    rounding half to even as torch.round. It equals the plain quantize_int8 bit for bit. Bound:
+//    bytes (X read, q written: 1.6 MB at ML-1M density, 0.5 us); at these sizes each launch is a
+//    few microseconds of latency.
+//  * segment_spmm_dedup_int8 runs on the dedup kernel's structure: the same parts of near-equal
+//    cost (dedup_parts with dedup_int8_block_cost: per block the staging plus its live slots,
+//    since its CUDA-core walk costs per slot, not per 16 distinct columns as the mma kernel), the
+//    same work lists (order_rc, order_slot, block_meta) and cp.async pipeline one block ahead
+//    (a block's distinct int8 row slices, 64 B each, its ordered codes and values). Per block the
+//    CTA widens the staged rows to f64 once (a [ub, 64] f64 tile) and forms each (row, column)
+//    run's W[r, u]: its bf16-rounded values summed in f32 in slot order, then rounded to bf16.
+//    Warp w owns the window rows r % 16 == w and keeps their f64 sums in registers, 64 features
+//    a CTA (two a lane); each run adds W[r, u] * q[u] with two f64 multiply-adds, exact. No
+//    atomics, no zero fill, one writer a value: a window of one part writes its dequantised rows
+//    straight to the output (f32(sum) * s, as the dequantisation pass computes it); the parts of
+//    a split window write [rb, d] f64 tiles to a scratch that a second pass sums in part order
+//    and dequantises as it writes. Its f64 sums take some 128 registers a thread: one 512-thread
+//    CTA an SM. What bounds it: not bytes but the instructions of the walk (per run a shuffle
+//    broadcast of the column and of W, a shared load, two f64 multiply-adds; per 32 runs of a
+//    warp, 16 row groups' bounds) and the block's two barriers, with only 16 warps an SM to hide
+//    their latency; then the f64 scratch of split windows (parts x rb x d x 8 B, written once and
+//    read once by the second pass).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -762,97 +782,297 @@ __global__ void __launch_bounds__(kThreads) dequantise_kernel(
   }
 }
 
-// The int8 dedup kernel (see the header): grid (n_windows, groups, d / kSlice).
-constexpr int kSlice = kWarp;  // features per CTA: one per lane
+// ---- int8: the quantisation of X per column (2 launches), then the int8 dedup kernel ----
+constexpr int kQuantRowLanes = kThreads / kWarp;  // a quantisation CTA: 32 column vectors x 8 rows
 
-__device__ __forceinline__ int first_at_least(const int* a, int n, int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
+__device__ __forceinline__ float4 abs_max(float4 a, float4 b) {
+  return make_float4(fmaxf(a.x, fabsf(b.x)), fmaxf(a.y, fabsf(b.y)), fmaxf(a.z, fabsf(b.z)),
+                     fmaxf(a.w, fabsf(b.w)));
 }
 
-__global__ void __launch_bounds__(kThreads) segment_spmm_dedup_int8_kernel(
-    const int* __restrict__ wmap, const int* __restrict__ lrows, const int* __restrict__ lcols,
-    const int* __restrict__ ucols, const float* __restrict__ vals, const int8_t* __restrict__ xq,
-    double* __restrict__ acc, int n_blocks, int nrows, int eb, int rb, int ub, int d) {
-  // shared: the [rb, kSlice] f64 tile, the block's [ub, kSlice] int8 row slices, and its slots
-  // (local row, local column, value, and per run head its row and bf16 weight W)
+// launch 1: partial[g, v] = max |x[r, v]| (4 columns a vector v) over the rows r of chunk g,
+// [g * rows_per, (g + 1) * rows_per); grid (n_chunks, ceil(d4 / 32))
+__global__ void __launch_bounds__(kThreads) column_amax_kernel(
+    const float4* __restrict__ x, float4* __restrict__ partial, int m, int d4, int rows_per) {
+  __shared__ float4 red[kQuantRowLanes][kWarp];
+  const int tx = threadIdx.x % kWarp;
+  const int ty = threadIdx.x / kWarp;
+  const int v = blockIdx.y * kWarp + tx;
+  const int r0 = blockIdx.x * rows_per;
+  const int r1 = min(m, r0 + rows_per);
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (v < d4) {
+    for (int r = r0 + ty; r < r1; r += kQuantRowLanes) {
+      a = abs_max(a, __ldg(x + static_cast<int64_t>(r) * d4 + v));
+    }
+  }
+  red[ty][tx] = a;
+  __syncthreads();
+  if (ty == 0 && v < d4) {
+#pragma unroll
+    for (int k = 1; k < kQuantRowLanes; ++k) a = abs_max(a, red[k][tx]);
+    partial[static_cast<int64_t>(blockIdx.x) * d4 + v] = a;
+  }
+}
+
+// x / s rounded half to even and clamped, as torch.round and torch.clamp; IEEE division
+__device__ __forceinline__ int quantise(float x, float s) {
+  return static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f));
+}
+
+__device__ __forceinline__ float col_scale(float amax) {
+  return fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);  // IEEE f32 division, not a reciprocal
+}
+
+// launch 2: each CTA takes the column maxima from the n_chunks partial rows, s = max(amax / 127,
+// 1e-12), and quantises the rows of its chunk, [g * rows_per, (g + 1) * rows_per), to
+// q = clamp(rint(x / s), -127, 127); CTA 0 writes s. Grid (n_q, ceil(d4 / 32)).
+__global__ void __launch_bounds__(kThreads) quantise_kernel(
+    const float4* __restrict__ x, const float4* __restrict__ partial, char4* __restrict__ q,
+    float4* __restrict__ scale, int m, int d4, int n_chunks, int rows_per) {
+  __shared__ float4 red[kQuantRowLanes][kWarp];
+  const int tx = threadIdx.x % kWarp;
+  const int ty = threadIdx.x / kWarp;
+  const int v = blockIdx.y * kWarp + tx;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (v < d4) {
+    for (int g = ty; g < n_chunks; g += kQuantRowLanes) {
+      a = abs_max(a, __ldg(partial + static_cast<int64_t>(g) * d4 + v));
+    }
+  }
+  red[ty][tx] = a;
+  __syncthreads();
+  if (ty == 0) {
+#pragma unroll
+    for (int k = 1; k < kQuantRowLanes; ++k) a = abs_max(a, red[k][tx]);
+    const float4 s = make_float4(col_scale(a.x), col_scale(a.y), col_scale(a.z), col_scale(a.w));
+    red[0][tx] = s;
+    if (blockIdx.x == 0 && v < d4) scale[v] = s;
+  }
+  __syncthreads();
+  const float4 s = red[0][tx];
+  const int r0 = blockIdx.x * rows_per;
+  const int r1 = min(m, r0 + rows_per);
+  if (v >= d4) return;
+  for (int r = r0 + ty; r < r1; r += kQuantRowLanes) {
+    const int64_t i = static_cast<int64_t>(r) * d4 + v;
+    const float4 t = __ldg(x + i);
+    q[i] = make_char4(quantise(t.x, s.x), quantise(t.y, s.y), quantise(t.z, s.z),
+                      quantise(t.w, s.w));
+  }
+}
+
+// The int8 dedup kernel (see the header): grid (n_parts, ceil(d / 64)), the dedup kernel's parts,
+// work lists and cp.async pipeline; warp w sums its window rows s * 16 + w, 2 features a lane,
+// in f64 registers.
+constexpr int kInt8PerLane = 2;
+constexpr int kInt8Slice = kWarp * kInt8PerLane;  // features a CTA sums: 64 int8 = 64 B a row
+// blocks staged ahead of the one being summed (a deeper pipeline was no faster on the H100: the
+// walk, not the staging, sets the time)
+constexpr int kInt8Ahead = 1;
+
+// bytes of its shared memory (the wrapper's _dedup_smem mirrors it): kInt8Ahead + 1 data stages
+// (the block's [ub, 64] int8 row slices, its ordered codes and values; 16-byte aligned),
+// 2 kInt8Ahead + 1 index stages (its meta row, ucols and ordered flat slots), the run weights W
+// of the block being summed (f64) and its [ub, 64] rows widened to f64
+__host__ __device__ constexpr size_t dedup_int8_data_bytes(int eb, int ub) {
+  return (static_cast<size_t>(ub) * kInt8Slice + static_cast<size_t>(eb) * 8 + 15) / 16 * 16;
+}
+__host__ __device__ constexpr size_t dedup_int8_smem_bytes(int eb, int ub) {
+  return (kInt8Ahead + 1) * dedup_int8_data_bytes(eb, ub) +
+         (2 * kInt8Ahead + 1) * static_cast<size_t>(kMetaPad + ub + eb) * 4 +
+         static_cast<size_t>(eb) * 8 + static_cast<size_t>(ub) * kInt8Slice * 8;
+}
+
+__global__ void __launch_bounds__(kDedupThreads, 1) segment_spmm_dedup_int8_kernel(
+    const int* __restrict__ part_window, const int* __restrict__ part_blocks,
+    const int* __restrict__ window_parts, const int* __restrict__ ucols,
+    const int* __restrict__ order_rc, const int* __restrict__ order_slot,
+    const int* __restrict__ block_meta, const float* __restrict__ vals,
+    const int8_t* __restrict__ xq, const float* __restrict__ scale, float* __restrict__ out,
+    double* __restrict__ scratch, int nrows, int eb, int rb, int ub, int d) {
+  constexpr int kDataStages = kInt8Ahead + 1;
+  constexpr int kIdxStages = 2 * kInt8Ahead + 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  double* tile = reinterpret_cast<double*>(smem);
-  int8_t* xs = reinterpret_cast<int8_t*>(tile + static_cast<int64_t>(rb) * kSlice);
-  int* s_lr = reinterpret_cast<int*>(xs + ub * kSlice);
-  int* s_lc = s_lr + eb;
-  int* s_head = s_lc + eb;
-  float* s_v = reinterpret_cast<float*>(s_head + eb);
-  float* s_w = s_v + eb;
-  const int win = blockIdx.x;
-  const int group = blockIdx.y;
-  const int c0 = blockIdx.z * kSlice;
+  const size_t xs_b = static_cast<size_t>(ub) * kInt8Slice;
+  const size_t data_b = dedup_int8_data_bytes(eb, ub);
+  const size_t idx_b = static_cast<size_t>(kMetaPad + ub + eb) * 4;
+  double* const xd = reinterpret_cast<double*>(smem);  // the block's rows as f64, [ub, 64]
+  unsigned char* const data0 = smem + static_cast<size_t>(ub) * kInt8Slice * 8;
+  double* const s_w = reinterpret_cast<double*>(data0 + kDataStages * data_b);
+  unsigned char* const idx0 = reinterpret_cast<unsigned char*>(s_w + eb);
+  auto xs_of = [&](int k) { return reinterpret_cast<int8_t*>(data0 + k * data_b); };
+  auto rc_of = [&](int k) { return reinterpret_cast<int*>(data0 + k * data_b + xs_b); };
+  auto v_of = [&](int k) { return reinterpret_cast<float*>(rc_of(k) + eb); };
+  auto idx_of = [&](int k) { return reinterpret_cast<int*>(idx0 + k * idx_b); };
+
+  const int part = blockIdx.x;
+  const int win = part_window[part];
+  const int c0 = blockIdx.y * kInt8Slice;
+  const int width = min(kInt8Slice, d - c0);  // 32 or 64 (d % 32 == 0)
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  for (int i = threadIdx.x; i < rb * kSlice; i += kThreads) tile[i] = 0.0;
-  // the window's blocks [lo, hi) of the non-decreasing wmap (an empty window has one all-pad
-  // block; the trailing pad blocks repeat the last window); this CTA takes every gridDim.y-th
-  const int lo = first_at_least(wmap, n_blocks, win);
-  const int hi = first_at_least(wmap, n_blocks, win + 1);
-  for (int b = lo + group; b < hi; b += gridDim.y) {
-    const int64_t base = static_cast<int64_t>(b) * eb;
-    const int* uc = ucols + static_cast<int64_t>(b) * ub;
-    __syncthreads();  // the tile is zeroed, or the last block is done with the staging
-    for (int e = threadIdx.x; e < eb; e += kThreads) {
-      s_lr[e] = lrows[base + e];
-      s_lc[e] = lcols[base + e];
-      s_v[e] = vals[base + e];
+  const int b0 = part_blocks[part];
+  const int b1 = part_blocks[part + 1];
+
+  // block b's meta row, ucols and ordered slots into its index stage
+  auto stage_idx = [&](int b) {
+    if (b >= b1) return;
+    int* dst = idx_of((b - b0) % kIdxStages);
+    for (int i = threadIdx.x; i < kMetaWidth; i += kDedupThreads) {
+      cp_async4(dst + i, block_meta + static_cast<int64_t>(b) * kMetaWidth + i);
     }
-    for (int u = threadIdx.x; u < ub; u += kThreads) {
-      const uint4* src = reinterpret_cast<const uint4*>(xq + static_cast<int64_t>(uc[u]) * d + c0);
-      uint4* dst = reinterpret_cast<uint4*>(xs + u * kSlice);
-      dst[0] = src[0];
-      dst[1] = src[1];
+    for (int i = threadIdx.x; i < ub; i += kDedupThreads) {
+      cp_async4(dst + kMetaPad + i, ucols + static_cast<int64_t>(b) * ub + i);
     }
-    __syncthreads();
-    // the first slot of each live (row, column) run holds the run's row and W, its bf16 sum
-    for (int e = threadIdx.x; e < eb; e += kThreads) {
-      const int er = s_lr[e];
-      const int ec = s_lc[e];
-      int head = rb;
+    for (int i = threadIdx.x; i < eb; i += kDedupThreads) {
+      cp_async4(dst + kMetaPad + ub + i, order_slot + static_cast<int64_t>(b) * eb + i);
+    }
+  };
+  // block b's int8 row slices, codes and values into its data stage, from its landed index stage
+  auto stage_data = [&](int b) {
+    if (b >= b1) return;
+    const int* id = idx_of((b - b0) % kIdxStages);
+    const int k = (b - b0) % kDataStages;
+    const int n = id[kGroups];
+    const int nu = id[kGroups + 1];
+    const int vecs = width / 16;
+    int8_t* xs = xs_of(k);
+    for (int i = threadIdx.x; i < nu * vecs; i += kDedupThreads) {
+      const int u = i / vecs;
+      const int v = i - u * vecs;
+      cp_async16(xs + u * kInt8Slice + 16 * v,
+                 xq + static_cast<int64_t>(id[kMetaPad + u]) * d + c0 + 16 * v);
+    }
+    int* rc = rc_of(k);
+    float* vs = v_of(k);
+    for (int i = threadIdx.x; i < n; i += kDedupThreads) {
+      cp_async4(rc + i, order_rc + static_cast<int64_t>(b) * eb + i);
+      cp_async4(vs + i, vals + id[kMetaPad + ub + i]);
+    }
+  };
+
+  // the pipeline: the first 2 kInt8Ahead blocks' indices, then one group per block ahead; block
+  // b's turn issues block b + kInt8Ahead's data and block b + 2 kInt8Ahead's indices, so the
+  // groups of the blocks up to b landed once all but the last kInt8Ahead - 1 groups have
+  for (int j = 0; j < 2 * kInt8Ahead; ++j) stage_idx(b0 + j);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  for (int j = 0; j < kInt8Ahead; ++j) {
+    stage_data(b0 + j);
+    cp_async_commit();
+  }
+  double acc[kRowsPerWarp][kInt8PerLane] = {};  // the sums of the warp's rows s * 16 + warp
+  for (int b = b0; b < b1; ++b) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kInt8Ahead - 1) : "memory");
+    __syncthreads();  // block b's data and block b + kInt8Ahead's indices landed; b - 1 is done
+    stage_data(b + kInt8Ahead);
+    stage_idx(b + 2 * kInt8Ahead);
+    cp_async_commit();
+    const int k = (b - b0) % kDataStages;
+    const int* id = idx_of((b - b0) % kIdxStages);
+    const int* rcs = rc_of(k);
+    const float* vs = v_of(k);
+    // W[r, u] at the last slot of each (row, column) run: the run's bf16-rounded values summed
+    // in f32 in slot order, then rounded to bf16; 0 at the run's other slots
+    const int n = id[kGroups];
+    for (int i = threadIdx.x; i < n; i += kDedupThreads) {
+      const int code = rcs[i];
       float w = 0.f;
-      if (er < rb && (e == 0 || s_lr[e - 1] != er || s_lc[e - 1] != ec)) {
+      if (i + 1 == n || rcs[i + 1] != code) {
+        int j = i;
+        while (j > 0 && rcs[j - 1] == code) --j;
         float sum = 0.f;
-        for (int j = e; j < eb && s_lr[j] == er && s_lc[j] == ec; ++j) {
-          sum += bf16_round(s_v[j]);
-        }
-        head = er;
+        for (; j <= i; ++j) sum += bf16_round(vs[j]);
         w = bf16_round(sum);
       }
-      s_head[e] = head;
-      s_w[e] = w;
+      s_w[i] = w;
     }
+    // the block's staged rows, each int8 widened to f64 once here rather than at every run: the
+    // per-run conversions were a large share of the walk
+    const int8_t* xs = xs_of(k);
+    const int nu = id[kGroups + 1];
+    for (int i = threadIdx.x; i < nu * kInt8Slice; i += kDedupThreads) xd[i] = xs[i];
     __syncthreads();
-    // each warp adds the runs of its own rows (r % 8 == warp), a feature per lane
-    for (int t0 = 0; t0 < eb; t0 += kWarp) {
-      const int e = t0 + lane;
-      const int r = e < eb ? s_head[e] : rb;
-      unsigned todo = __ballot_sync(kFull, r < rb && r % kWarpsPerCta == warp);
-      while (todo) {
-        const int j = t0 + __ffs(todo) - 1;
-        todo &= todo - 1;
-        const double w = s_w[j];
-        tile[s_head[j] * kSlice + lane] += w * static_cast<double>(xs[s_lc[j] * kSlice + lane]);
+    // the warp's 16 row groups: offsets and 32 edges at a time held in lanes and broadcast by
+    // shuffles; per run one shared load of the staged row and two f64 multiply-adds, exact
+    const int my_off = id[warp * kRowsPerWarp + min(lane, kRowsPerWarp)];
+    const int first = __shfl_sync(kFull, my_off, 0);
+    const int last = __shfl_sync(kFull, my_off, kRowsPerWarp);
+    for (int t0 = first; t0 < last; t0 += kWarp) {
+      const bool live = t0 + lane < last;
+      const int my_u = live ? (rcs[t0 + lane] & 0xffff) * kInt8Slice : 0;
+      const double my_w = live ? s_w[t0 + lane] : 0.0;
+#pragma unroll
+      for (int s = 0; s < kRowsPerWarp; ++s) {
+        const int j0 = max(__shfl_sync(kFull, my_off, s) - t0, 0);
+        const int j1 = min(__shfl_sync(kFull, my_off, s + 1) - t0, kWarp);
+        for (int j = j0; j < j1; ++j) {
+          const int u = __shfl_sync(kFull, my_u, j);
+          const double w = __shfl_sync(kFull, my_w, j);
+          const double2 q = *reinterpret_cast<const double2*>(xd + u + kInt8PerLane * lane);
+          if (w != 0.0) {
+            acc[s][0] = fma(w, q.x, acc[s][0]);
+            acc[s][1] = fma(w, q.y, acc[s][1]);
+          }
+        }
       }
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rb * kSlice; i += kThreads) {
-    const int64_t row = static_cast<int64_t>(win) * rb + i / kSlice;
-    if (row < nrows && tile[i] != 0.0) atomicAdd(acc + row * d + c0 + i % kSlice, tile[i]);
+  cp_async_wait_all();  // no copy outlives the CTA
+
+  // the part's rows: dequantised into the output where the window is one part, else as f64 into
+  // its scratch tile
+  if (kInt8PerLane * lane >= width) return;
+  const int rows = min(rb, nrows - win * rb);
+  const int c = c0 + kInt8PerLane * lane;
+  if (window_parts[win + 1] - window_parts[win] == 1) {
+    const float s0 = scale[c];
+    const float s1 = scale[c + 1];
+#pragma unroll
+    for (int s = 0; s < kRowsPerWarp; ++s) {
+      const int r = s * kDedupWarps + warp;
+      if (r < rows) {
+        *reinterpret_cast<float2*>(out + (static_cast<int64_t>(win) * rb + r) * d + c) =
+            make_float2(__double2float_rn(acc[s][0]) * s0, __double2float_rn(acc[s][1]) * s1);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < kRowsPerWarp; ++s) {
+      const int r = s * kDedupWarps + warp;
+      if (r < rows) {
+        *reinterpret_cast<double2*>(scratch + (static_cast<int64_t>(part) * rb + r) * d + c) =
+            make_double2(acc[s][0], acc[s][1]);
+      }
+    }
+  }
+}
+
+// the rows of split windows: out = the f64 sum of their parts' tiles in part order, rounded to f32
+// and scaled, as dequantise_kernel does
+__global__ void __launch_bounds__(kThreads) segment_spmm_dedup_int8_sum_parts_kernel(
+    const double2* __restrict__ scratch, const int* __restrict__ window_parts,
+    const float2* __restrict__ scale, float2* __restrict__ out, int nrows, int rb, int d2) {
+  const int64_t n2 = static_cast<int64_t>(nrows) * d2;
+  const int64_t tile2 = static_cast<int64_t>(rb) * d2;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n2; i += stride) {
+    const int r = static_cast<int>(i / d2);
+    const int w = r / rb;
+    const int p0 = window_parts[w];
+    const int p1 = window_parts[w + 1];
+    if (p1 - p0 < 2) continue;  // written by the window's only part
+    const int64_t off = i - static_cast<int64_t>(w) * tile2;
+    double2 s = scratch[p0 * tile2 + off];
+    for (int p = p0 + 1; p < p1; ++p) {
+      const double2 v = scratch[p * tile2 + off];
+      s.x += v.x;
+      s.y += v.y;
+    }
+    const float2 sc = scale[i % d2];
+    out[i] = make_float2(__double2float_rn(s.x) * sc.x, __double2float_rn(s.y) * sc.y);
   }
 }
 
@@ -920,11 +1140,11 @@ int launch_dequantise(const double* acc, const float* scale, float* out, int nro
 // the cudaError_t of its launches (0 on success). `x` is [ncols, d], 16-byte aligned: f32 or
 // (x_bf16 != 0) bf16 with d % 8 == 0, writing every row of the f32 `out` [nrows, d] (the dedup
 // kernel through the f32 `scratch` [n_parts, rb, d] where a window has several parts); or, for
-// the _int8 entry
-// points, int8 with d % 32 == 0 beside its per-column f32 `scale` [d], summing into the f64
-// scratch `acc` [nrows, d] (written whole by the base kernel; zeroed by the caller for the
-// dedup kernel, which adds into it) and writing the dequantised f32 `out` whole. `lanes_log2`
-// is log2 of the lanes a base-kernel team spreads one X row over (the wrapper's choice).
+// the _int8 entry points, int8 with d % 32 == 0 beside its per-column f32 `scale` [d], writing
+// the dequantised f32 `out` whole: the base kernel through the f64 scratch `acc` [nrows, d],
+// which it writes whole, the dedup kernel through the f64 `scratch` [n_parts, rb, d] where a
+// window has several parts (neither needs zeroing). `lanes_log2` is log2 of the lanes a
+// base-kernel team spreads one X row over (the wrapper's choice).
 
 extern "C" int hd_segment_spmm_rows(const int* warp_rows, const int* row_start,
                                     const int* row_end, const int* cols, const float* vals,
@@ -964,23 +1184,51 @@ extern "C" int hd_segment_spmm_rows_int8(const int* warp_rows, const int* row_st
   return rc != 0 ? rc : launch_dequantise(acc, scale, out, nrows, d, s);
 }
 
-extern "C" int hd_segment_spmm_dedup_int8(const int* wmap, const int* lrows, const int* lcols,
-                                          const int* ucols, const float* vals, const void* xq,
-                                          const float* scale, double* acc, float* out,
-                                          int n_blocks, int n_windows, int groups, int nrows,
+extern "C" int hd_segment_spmm_dedup_int8(const int* part_window, const int* part_blocks,
+                                          const int* window_parts, const int* ucols,
+                                          const int* order_rc, const int* order_slot,
+                                          const int* block_meta, const float* vals,
+                                          const void* xq, const float* scale, float* out,
+                                          double* scratch, int n_parts, int n_windows, int nrows,
                                           int eb, int rb, int ub, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_blocks > 0 && n_windows > 0) {
-    const int smem = rb * kSlice * static_cast<int>(sizeof(double)) + ub * kSlice + eb * 20;
-    const cudaError_t err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(segment_spmm_dedup_int8_kernel),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    segment_spmm_dedup_int8_kernel<<<dim3(n_windows, groups, d / kSlice), kThreads, smem, s>>>(
-        wmap, lrows, lcols, ucols, vals, static_cast<const int8_t*>(xq), acc, n_blocks, nrows,
-        eb, rb, ub, d);
-    const int rc = static_cast<int>(cudaGetLastError());
-    if (rc != 0) return rc;
-  }
-  return launch_dequantise(acc, scale, out, nrows, d, s);
+  if (n_parts <= 0 || nrows <= 0) return 0;
+  const int smem = static_cast<int>(dedup_int8_smem_bytes(eb, ub));
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(segment_spmm_dedup_int8_kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(n_parts, (d + kInt8Slice - 1) / kInt8Slice);
+  segment_spmm_dedup_int8_kernel<<<grid, kDedupThreads, smem, s>>>(
+      part_window, part_blocks, window_parts, ucols, order_rc, order_slot, block_meta, vals,
+      static_cast<const int8_t*>(xq), scale, out, scratch, nrows, eb, rb, ub, d);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0 || n_parts == n_windows) return rc;  // no window was split
+  const int64_t n2 = static_cast<int64_t>(nrows) * d / 2;
+  const int blocks = static_cast<int>(std::min<int64_t>((n2 + kThreads - 1) / kThreads, 132 * 8));
+  segment_spmm_dedup_int8_sum_parts_kernel<<<blocks, kThreads, 0, s>>>(
+      reinterpret_cast<const double2*>(scratch), window_parts,
+      reinterpret_cast<const float2*>(scale), reinterpret_cast<float2*>(out), nrows, rb, d / 2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hd_quantize_int8: q [m, d] int8 and scale [d] f32 from x [m, d] f32 (d % 4 == 0, finite), bit for
+// bit as the plain quantize_int8; `partial` [n_chunks, d] f32 is scratch. Two launches: the
+// column maxima of n_chunks row chunks, then n_q CTAs that each reduce them and quantise a chunk.
+extern "C" int hd_quantize_int8(const float* x, void* q, float* scale, float* partial, int m,
+                                int d, int n_chunks, int n_q, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 0 || n_chunks <= 0 || n_q <= 0) return 0;
+  const int d4 = d / 4;
+  const int slabs = (d4 + kWarp - 1) / kWarp;
+  column_amax_kernel<<<dim3(n_chunks, slabs), kThreads, 0, s>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(partial), m, d4,
+      (m + n_chunks - 1) / n_chunks);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  quantise_kernel<<<dim3(n_q, slabs), kThreads, 0, s>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<const float4*>(partial),
+      static_cast<char4*>(q), reinterpret_cast<float4*>(scale), m, d4, n_chunks,
+      (m + n_q - 1) / n_q);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -10,10 +10,14 @@ microbenchmark `scripts/bench_gather_fusion.py` (`gather_kernel`, :86, and
     dtype (f32 or bf16); an index outside [0, n) is clamped into it, so
     the kernel reads no memory outside X;
   * `fused_window_spmm(blocked, x)`: A @ X over the row-window layout of
-    `pack_blocked` (`wmap`, `cols`, `local_rows`, `vals`), one CTA per
-    window summing into a shared-memory tile. In bf16 mode
-    (`BlockedCOO.bf16`) it rounds as the Pallas kernel does: the table
-    and each edge value to bf16, their product to bf16, the sums in f32.
+    `pack_blocked`, reading only what the Pallas kernel reads (`wmap`,
+    `cols`, `local_rows`, `vals`): a CTA per 32 rows of a window finds
+    its rows' slot ranges by searching `local_rows` within the window's
+    range (`fused_row_bounds` is that search in plain torch), and a warp
+    sums each row in registers, written once, with no atomics. In bf16
+    mode (`BlockedCOO.bf16`) it rounds as the Pallas kernel does: the
+    table and each edge value to bf16, their product to bf16, the sums
+    in f32.
 
 Each has a plain PyTorch version beside it (`*_reference`). A wrapper
 takes the plain version only for tensors on the CPU; for a CUDA tensor it
@@ -26,7 +30,7 @@ import ctypes
 
 import torch
 
-from .segment_spmm import _MAX_SMEM, BlockedCOO
+from .segment_spmm import BlockedCOO
 
 # launches of each CUDA kernel, counted by its wrapper where it launches
 LAUNCHES = {"resident_row_gather": 0, "fused_window_spmm": 0}
@@ -44,7 +48,7 @@ def _library() -> ctypes.CDLL:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.hd_resident_row_gather.argtypes = [p, p, p, i64, i, i, p]
         lib.hd_resident_row_gather.restype = i
-        lib.hd_fused_window_spmm.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, p]
+        lib.hd_fused_window_spmm.argtypes = [p, p, p, p, p, i, p, i, i, i, i, i, i, p]
         lib.hd_fused_window_spmm.restype = i
         _lib = lib
     return _lib
@@ -103,9 +107,31 @@ def fused_window_spmm_reference(blocked: BlockedCOO, x: torch.Tensor) -> torch.T
     return out.index_add_(0, grow, prod)[: blocked.nrows]
 
 
+def fused_row_bounds(blocked: BlockedCOO) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slot ranges the fused kernel finds for the rows, in plain torch:
+    row w * rb + r of window w holds the flat slots [start, end) of the
+    [n_blocks * eb] slot arrays, found as the kernel finds them, by a
+    search on `wmap` for the window's slots and on `local_rows` within
+    them (non-decreasing there: the window's rows in order, then its pads,
+    = rb). Returns (start, end), each [n_windows * rb] int64; an empty row
+    gets an empty range."""
+    eb, rb = blocked.eb, blocked.rb
+    wmap = blocked.wmap.long()
+    lrows = blocked.local_rows.reshape(-1).long()
+    win = torch.arange(blocked.n_windows + 1, device=wmap.device)
+    slot = torch.searchsorted(wmap, win) * eb  # window w's slots: [slot[w], slot[w + 1])
+    keys = torch.arange(rb + 1, device=wmap.device)
+    bounds = torch.stack([
+        s0 + torch.searchsorted(lrows[s0:s1], keys)
+        for s0, s1 in zip(slot[:-1].tolist(), slot[1:].tolist())
+    ])  # [n_windows, rb + 1]: row r's range is [bounds[w, r], bounds[w, r + 1])
+    return bounds[:, :-1].reshape(-1), bounds[:, 1:].reshape(-1)
+
+
 def fused_window_spmm(blocked: BlockedCOO, x: torch.Tensor) -> torch.Tensor:
     """A @ X [nrows, d] f32 over a `pack_blocked` layout: the plain version
-    on the CPU, the CUDA kernel (a CTA per row window) on the card."""
+    on the CPU, the CUDA kernel (a CTA per 32 rows of a window) on the
+    card."""
     if x.device.type == "cpu":
         return fused_window_spmm_reference(blocked, x)
     if x.device.type != "cuda":
@@ -121,10 +147,8 @@ def fused_window_spmm(blocked: BlockedCOO, x: torch.Tensor) -> torch.Tensor:
                          f"columns")
     if d % 32 or d > 256:
         raise ValueError(f"fused_window_spmm: the kernel needs d % 32 == 0 and d <= 256, got {d}")
-    smem = blocked.rb * d * 4
-    if smem > _MAX_SMEM:
-        raise ValueError(f"fused_window_spmm: a {blocked.rb} x {d} f32 tile needs {smem} B of "
-                         f"shared memory, above the {_MAX_SMEM} B a Hopper CTA may use")
+    if blocked.n_blocks * blocked.eb >= 2**31:
+        raise ValueError("fused_window_spmm: the kernel indexes the slots with 32-bit ints")
     for a in (blocked.wmap, blocked.cols, blocked.local_rows, blocked.vals):
         if a.device != x.device or not a.is_contiguous():
             raise ValueError("fused_window_spmm: layout tensors must be contiguous and on X's "
@@ -133,12 +157,16 @@ def fused_window_spmm(blocked: BlockedCOO, x: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"fused_window_spmm: layout tensor of dtype {a.dtype}; the kernel "
                              f"takes int32 indices and float32 values")
     table = x.to(torch.bfloat16) if blocked.bf16 else x  # cast the table once
+    # every row of `out` is written, empty ones as zeros
     out = torch.empty(blocked.n_windows * blocked.rb, d, dtype=torch.float32, device=x.device)
+    # a team of 2^lanes_log2 lanes covers a row, 16 B a lane
+    lanes_log2 = min(5, (d // (8 if blocked.bf16 else 4) - 1).bit_length())
     with torch.cuda.device(x.device):
         rc = _library().hd_fused_window_spmm(
             blocked.wmap.data_ptr(), blocked.cols.data_ptr(), blocked.local_rows.data_ptr(),
             blocked.vals.data_ptr(), table.data_ptr(), int(blocked.bf16), out.data_ptr(),
-            blocked.n_blocks, blocked.n_windows, blocked.eb, blocked.rb, d, _stream(x))
+            blocked.n_blocks, blocked.n_windows, blocked.eb, blocked.rb, d, lanes_log2,
+            _stream(x))
     if rc != 0:
         raise RuntimeError(f"fused_window_spmm: CUDA error {rc} at launch")
     LAUNCHES["fused_window_spmm"] += 1

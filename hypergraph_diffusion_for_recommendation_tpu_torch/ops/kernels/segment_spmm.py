@@ -25,7 +25,11 @@ per slot. The forward runs on four CUDA kernels written for Hopper
   * `segment_spmm_rows_int8` and `segment_spmm_dedup_int8`, the ports of
     `_segment_matmul_int8_kernel` and `_segment_matmul_dedup_int8_kernel`:
     the first is the base kernel on an int8-quantised X
-    (`BlockedCOO.int8`), the second a kernel of its own.
+    (`BlockedCOO.int8`), the second runs on the dedup kernel's parts
+    (`dedup_parts` with `dedup_int8_block_cost`) and work lists, its
+    sums in f64 registers, and dequantises as it writes. On the card X
+    is quantised by a kernel of two launches (`quantize_int8_fused`),
+    bit for bit with the plain `quantize_int8`.
 
 `blocked_spmm_reference` is the plain PyTorch version of all four and
 rounds where the kernels round. `blocked_spmm` takes it only for tensors
@@ -80,7 +84,7 @@ _SM_SMEM = 233472
 
 # launches of each CUDA kernel, counted by `blocked_spmm` where it launches
 LAUNCHES = {"segment_spmm_rows": 0, "segment_spmm_dedup": 0,
-            "segment_spmm_rows_int8": 0, "segment_spmm_dedup_int8": 0}
+            "segment_spmm_rows_int8": 0, "segment_spmm_dedup_int8": 0, "quantize_int8": 0}
 
 
 @dataclass(frozen=True)
@@ -474,8 +478,12 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-column symmetric int8 quantisation, as the JAX int8 branches
     compute it outside the Pallas body: s = max(max|X| / 127, 1e-12),
     q = clip(round(X / s), -127, 127) (round half to even, as
-    `jnp.round`). Returns (q [m, d] int8, s [d] float32)."""
-    s = torch.clamp(x.abs().amax(dim=0) / 127.0, min=1e-12)
+    `jnp.round`). Returns (q [m, d] int8, s [d] float32). Both divisions
+    are IEEE f32 divisions, as in JAX, on every device: the divisor 127 is
+    a tensor, since torch divides a CUDA tensor by a Python number as a
+    product with its reciprocal, which is an ulp off for some maxima."""
+    amax = x.abs().amax(dim=0)
+    s = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-12)
     q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
     return q, s
 
@@ -540,8 +548,10 @@ def _library() -> ctypes.CDLL:
         lib.hd_segment_spmm_dedup.restype = i
         lib.hd_segment_spmm_rows_int8.argtypes = [p] * 9 + [i] * 5 + [p]
         lib.hd_segment_spmm_rows_int8.restype = i
-        lib.hd_segment_spmm_dedup_int8.argtypes = [p] * 9 + [i] * 8 + [p]
+        lib.hd_segment_spmm_dedup_int8.argtypes = [p] * 12 + [i] * 7 + [p]
         lib.hd_segment_spmm_dedup_int8.restype = i
+        lib.hd_quantize_int8.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.hd_quantize_int8.restype = i
         _lib = lib
     return _lib
 
@@ -574,11 +584,9 @@ def _structure(blocked: BlockedCOO, device: torch.device) -> tuple[int, ...]:
     in the layout."""
     if not blocked.dedup:
         tensors = (blocked.warp_rows, blocked.row_start, blocked.row_end, blocked.cols)
-    elif blocked.int8:
-        tensors = (blocked.wmap, blocked.local_rows, blocked.local_cols, blocked.ucols)
     else:
         tensors = (blocked.ucols, blocked.order_rc, blocked.order_slot, blocked.block_meta)
-    key = ("structure", blocked.dedup, blocked.int8)
+    key = ("structure", blocked.dedup)
     hit = blocked.cache.get(key)
     if hit is not None and hit[0] == device and all(a is b for a, b in zip(hit[1], tensors)):
         return hit[2]
@@ -597,26 +605,31 @@ def _structure(blocked: BlockedCOO, device: torch.device) -> tuple[int, ...]:
 
 
 def _dedup_slice(elem_size: int) -> int:
-    # features a dedup CTA sums: 128 in bf16 (the tensor-core kernel), 64 in f32
+    # features a dedup CTA sums: 128 in bf16 (the tensor-core kernel), 64 in
+    # f32 and in int8 (elem_size 1)
     return 128 if elem_size == 2 else 64
 
 
 def _dedup_smem(blocked: BlockedCOO, elem_size: int) -> int:
-    # as `mma_smem_bytes` (bf16) and `dedup_smem_bytes` (f32) in the CUDA
-    # source: two data stages (the block's staged rows and slots), three of
-    # its indices; in f32 its run weights, in bf16 the warps' [16, 64] W
-    # tiles
+    # as `mma_smem_bytes` (bf16), `dedup_smem_bytes` (f32) and
+    # `dedup_int8_smem_bytes` (int8) in the CUDA source: two data stages
+    # (the block's staged rows and slots), three of its indices; in f32 and
+    # int8 its run weights, in bf16 the warps' [16, 64] W tiles
     eb, ub, sl = blocked.eb, blocked.ub, _dedup_slice(elem_size)
     if elem_size == 2:
         return 2 * (ub * (sl + 8) * 2 + eb * 8) + 3 * (260 + ub + eb) * 4 + 256 * 72 * 2
+    if elem_size == 1:  # W in f64, and the block's rows widened to f64
+        data = -(-(ub * sl + eb * 8) // 16) * 16
+        return 2 * data + 3 * (260 + ub + eb) * 4 + eb * 8 + ub * sl * 8
     return 2 * (ub * sl * 4 + eb * 8) + 3 * (260 + ub + eb) * 4 + eb * 4
 
 
 def dedup_target(blocked: BlockedCOO, d: int, elem_size: int, n_sms: int) -> int:
-    """Parts the dedup kernel cuts the blocks into: as many CTAs (parts x
-    feature slices) as `n_sms` SMs hold at once."""
-    per_sm = max(1, min(_SM_SMEM // _dedup_smem(blocked, elem_size),
-                        2048 // (DEDUP_WARPS * 32)))
+    """Parts a dedup kernel cuts the blocks into: as many CTAs (parts x
+    feature slices) as `n_sms` SMs hold at once (`elem_size` 1: the int8
+    kernel, whose f64 sums fill an SM's registers with one CTA)."""
+    per_sm = 1 if elem_size == 1 else max(1, min(_SM_SMEM // _dedup_smem(blocked, elem_size),
+                                                 2048 // (DEDUP_WARPS * 32)))
     return max(1, n_sms * per_sm // -(-d // _dedup_slice(elem_size)))
 
 
@@ -627,11 +640,22 @@ def dedup_block_cost(block_meta: np.ndarray) -> np.ndarray:
     return 4 + -(-block_meta[:, -1] // 16)
 
 
+def dedup_int8_block_cost(block_meta: np.ndarray) -> np.ndarray:
+    """A block's cost to the int8 dedup kernel, in units of 128 live slots:
+    two for the staging and its barriers, and one per 128 live slots. Its
+    warps walk every live slot on the CUDA cores (f64 multiply-adds), so
+    its slots set its time, where the bf16 kernel's is set by its
+    16-column mma steps (`dedup_block_cost`); the distinct rows it stages
+    are 64 B each. The weights are a model, not a fit to the card."""
+    return 2 + -(-block_meta[:, DEDUP_WARPS * DEDUP_ROWS_PER_WARP] // 128)
+
+
 def _parts(blocked: BlockedCOO, target: int, device: torch.device):
-    key = ("parts", target, device)
+    key = ("parts", target, device, blocked.int8)
     hit = blocked.cache.get(key)
     if hit is None:
-        cost = dedup_block_cost(blocked.block_meta.cpu().numpy())  # once a layout
+        cost_of = dedup_int8_block_cost if blocked.int8 else dedup_block_cost
+        cost = cost_of(blocked.block_meta.cpu().numpy())  # once a layout
         hit = blocked.cache[key] = tuple(
             _i32(a, device) for a in dedup_parts(blocked.window_blocks, target, cost))
     return hit
@@ -655,7 +679,7 @@ def _launch(blocked: BlockedCOO, x: torch.Tensor, target: int | None = None) -> 
         return torch.zeros(n, d, dtype=torch.float32, device=dev)
     scale = None
     if blocked.int8:
-        table, scale = quantize_int8(x)  # torch ops, as XLA ops in JAX
+        table, scale = quantize_int8_fused(x)
     elif blocked.bf16:
         table = x.to(torch.bfloat16)  # cast the table once
     else:
@@ -679,30 +703,34 @@ def _launch(blocked: BlockedCOO, x: torch.Tensor, target: int | None = None) -> 
             name, fn = "segment_spmm_rows", lib.hd_segment_spmm_rows
             args = (*ptrs, vals, tab, int(blocked.bf16), out.data_ptr(), n_ctas, d, lanes_log2,
                     ROW_SLOTS, stream)
-    elif scale is not None:
-        # an [rb, 32] f64 tile, a 32-feature slice of ub rows and the eb slots
-        _check_smem(blocked.rb * 32 * 8 + blocked.ub * 32 + blocked.eb * 20)
-        name, fn = "segment_spmm_dedup_int8", lib.hd_segment_spmm_dedup_int8
-        # zeroed: the kernel adds its tiles into it; about 8 blocks per CTA
-        acc = torch.zeros(n, d, dtype=torch.float64, device=dev)
-        g = max(1, round(blocked.n_blocks / (blocked.n_windows * 8)))
-        args = (*ptrs, vals, tab, scale.data_ptr(), acc.data_ptr(), out.data_ptr(),
-                blocked.n_blocks, blocked.n_windows, g, n, *tiles)
     else:
-        _check_smem(_dedup_smem(blocked, table.element_size()))
-        if blocked.bf16 and (blocked.ub > 256 or blocked.ub % 4 or blocked.eb % 4):
+        elem = table.element_size()  # 1 for the int8 kernel
+        _check_smem(_dedup_smem(blocked, elem))
+        if elem == 2 and (blocked.ub > 256 or blocked.ub % 4 or blocked.eb % 4):
             raise ValueError(f"blocked_spmm: the bf16 dedup kernel takes unique_block <= 256 "
                              f"and edge and unique blocks of multiples of 4, got eb={blocked.eb} "
                              f"ub={blocked.ub}")
-        name, fn = "segment_spmm_dedup", lib.hd_segment_spmm_dedup
-        pw, pb, wp = _parts(blocked, target or dedup_target(
-            blocked, d, table.element_size(), _sm_count(dev)), dev)
+        pw, pb, wp = _parts(blocked, target or dedup_target(blocked, d, elem, _sm_count(dev)), dev)
         n_parts = pw.shape[0]
-        # [n_parts, rb, d]: the tiles of the windows cut into several parts
-        scratch = (torch.empty(n_parts, blocked.rb, d, dtype=torch.float32, device=dev)
+        # [n_parts, rb, d]: the tiles of the windows cut into several parts, f64 for int8
+        scratch = (torch.empty(n_parts, blocked.rb, d, device=dev,
+                               dtype=torch.float32 if scale is None else torch.float64)
                    if n_parts > blocked.n_windows else out)
-        args = (pw.data_ptr(), pb.data_ptr(), wp.data_ptr(), *ptrs, vals, tab, int(blocked.bf16),
-                out.data_ptr(), scratch.data_ptr(), n_parts, blocked.n_windows, n, *tiles)
+        head = (pw.data_ptr(), pb.data_ptr(), wp.data_ptr(), *ptrs, vals, tab)
+        tail = (out.data_ptr(), scratch.data_ptr(), n_parts, blocked.n_windows, n, *tiles)
+        if scale is not None:
+            name, fn = "segment_spmm_dedup_int8", lib.hd_segment_spmm_dedup_int8
+            args = (*head, scale.data_ptr(), *tail)
+        else:
+            name, fn = "segment_spmm_dedup", lib.hd_segment_spmm_dedup
+            args = (*head, int(blocked.bf16), *tail)
+    _run(name, dev, fn, args)
+    return out
+
+
+def _run(name: str, dev: torch.device, fn, args) -> None:
+    """Call a kernel's entry point on `dev` and count its launch; raise on
+    the CUDA error it returns."""
     if dev.index == torch.cuda.current_device():
         rc = fn(*args)
     else:
@@ -711,7 +739,32 @@ def _launch(blocked: BlockedCOO, x: torch.Tensor, target: int | None = None) -> 
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
     LAUNCHES[name] += 1
-    return out
+
+
+def quantize_int8_fused(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_int8` of a [m, d] float32 X (d % 4 == 0): the plain version
+    on the CPU; on the card the CUDA kernel of two launches (column maxima
+    of row chunks, then the quantisation), bit for bit with the plain one.
+    Returns (q [m, d] int8, s [d] float32)."""
+    if x.device.type == "cpu":
+        return quantize_int8(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_int8_fused: unsupported device {x.device}")
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous() or x.shape[1] % 4:
+        raise ValueError(f"quantize_int8_fused: X must be a contiguous 2-D float32 tensor with "
+                         f"d % 4 == 0, got {tuple(x.shape)} {x.dtype} "
+                         f"contiguous={x.is_contiguous()}")
+    m, d = x.shape
+    dev = x.device
+    n_chunks = max(1, min(64, -(-m // 32)))  # row chunks of the column maxima
+    n_q = max(1, min(2 * _sm_count(dev), -(-m // 16)))  # CTAs of the quantisation
+    q = torch.empty(m, d, dtype=torch.int8, device=dev)
+    scale = torch.empty(d, dtype=torch.float32, device=dev)
+    partial = torch.empty(n_chunks, d, dtype=torch.float32, device=dev)
+    _run("quantize_int8", dev, _library().hd_quantize_int8,
+         (x.data_ptr(), q.data_ptr(), scale.data_ptr(), partial.data_ptr(), m, d, n_chunks, n_q,
+          torch.cuda.current_stream(dev).cuda_stream))
+    return q, scale
 
 
 def _check_smem(smem: int) -> None:

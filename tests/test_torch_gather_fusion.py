@@ -110,3 +110,76 @@ def test_check_kernels_on_the_cpu(probe):
                          "fused_window_spmm f32", "fused_window_spmm bf16"}
     with pytest.raises(RuntimeError, match="CUDA"):
         B.run_probes(probe)
+
+
+def _layout(case):
+    """(layout, X): the probe's data; its nnz cut short of a whole edge
+    block; rows in the first and last windows only (the windows between
+    get one all-pad block each); that graph again in small tiles, so that
+    windows span several blocks."""
+    if case in ("probe", "ragged_nnz"):
+        nnz = SMALL["nnz"] if case == "probe" else SMALL["nnz"] - 333
+        p = B.make_probe("cpu", n=SMALL["n"], d=SMALL["d"], nnz=nnz, eb=SMALL["eb"])
+        return p.blocked, p.x
+    rng = np.random.default_rng(3)
+    n, d, nnz = 1100, 32, 1000
+    rows = np.sort(np.concatenate([rng.integers(0, 200, 700), rng.integers(1030, n, nnz - 700)]))
+    cols = rng.integers(0, n, nnz)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    tiles = dict(edge_block=64, row_block=32) if case == "small_tiles" else {}
+    blocked = tsp.pack_blocked(rows, cols, vals, (n, n), device="cpu", **tiles)
+    return blocked, torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32))
+
+
+LAYOUTS = ["probe", "empty_windows", "ragged_nnz", "small_tiles"]
+
+
+@pytest.mark.parametrize("case", LAYOUTS)
+def test_local_rows_do_not_decrease_within_a_window(case):
+    # the fused kernel's search on local_rows needs them sorted over each
+    # window's slots, the window's pads (= rb) last
+    blocked, _ = _layout(case)
+    wmap = blocked.wmap.numpy()
+    lrows = blocked.local_rows.numpy().reshape(-1)
+    assert (np.diff(wmap) >= 0).all()
+    for w in range(blocked.n_windows):
+        s0, s1 = np.searchsorted(wmap, [w, w + 1]) * blocked.eb
+        assert s1 > s0  # an empty window keeps one all-pad block
+        win = lrows[s0:s1]  # sorted with the pads (= rb, the largest value) last
+        assert (np.diff(win) >= 0).all() and win.max() <= blocked.rb
+
+
+@pytest.mark.parametrize("case", LAYOUTS)
+def test_fused_row_bounds_are_the_rows_slot_ranges(case):
+    # the kernel's slot range of each row, found from wmap and local_rows
+    # alone, equals the packer's row_start/row_end on every live row, and
+    # an empty row (of a live or an empty window, or past nrows) gets an
+    # empty range
+    blocked, _ = _layout(case)
+    start, end = G.fused_row_bounds(blocked)
+    assert start.shape == end.shape == (blocked.n_windows * blocked.rb,)
+    n = blocked.nrows
+    rs, re_ = blocked.row_start.long(), blocked.row_end.long()
+    live = re_ > rs
+    assert int(live.sum()) > 0
+    np.testing.assert_array_equal(start[:n][live].numpy(), rs[live].numpy())
+    np.testing.assert_array_equal(end[:n][live].numpy(), re_[live].numpy())
+    assert (start[:n][~live] == end[:n][~live]).all() and (start[n:] == end[n:]).all()
+    assert (end >= start).all() and int((end - start).sum()) == blocked.n_live
+
+
+@pytest.mark.parametrize("case", LAYOUTS)
+def test_fused_walk_over_row_bounds_matches_plain(case):
+    # the kernel's walk in torch: each row sums val * X[col] over its slot
+    # range, f32, in slot order; against the plain version's index_add_
+    blocked, x = _layout(case)
+    start, end = G.fused_row_bounds(blocked)
+    cols = blocked.cols.reshape(-1).long()
+    vals = blocked.vals.reshape(-1)
+    out = torch.zeros(start.shape[0], x.shape[1])
+    for r in torch.nonzero(end > start).squeeze(1).tolist():
+        s, e = int(start[r]), int(end[r])
+        out[r] = (vals[s:e, None] * x[cols[s:e]]).sum(0)
+    want = G.fused_window_spmm_reference(blocked, x)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(out[: blocked.nrows], want, rtol=1e-5, atol=1e-6 * scale)

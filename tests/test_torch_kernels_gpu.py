@@ -75,17 +75,22 @@ def _one_block_graph():
 @pytest.mark.parametrize("d", [8, 256])
 @pytest.mark.parametrize("graph", ["hub", "one_block"])
 @pytest.mark.parametrize("kernel", ["rows", "dedup_whole_windows", "dedup_split_windows"])
-@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
 def test_redesigned_kernels_match_plain_and_repeat(cuda, mode, kernel, graph, d):
-    # kernel 1 on a hub row far longer than one CTA's warps' share (3000
-    # slots) and on a window of one block; kernel 2 with each window in one
-    # part and with a part per block (the second pass sums the parts' tiles);
-    # the narrowest and a wide d. Both write every row once in a fixed
-    # order: two calls give the same bits
+    # kernels 1 and 3 on a hub row far longer than one CTA's warps' share
+    # (3000 slots) and on a window of one block; kernels 2 and 4 with each
+    # window in one part and with a part per block (the second pass sums the
+    # parts' tiles); the narrowest and a wide d (int8 takes d % 32 == 0: 32
+    # for the narrowest). All write every row once in a fixed order: two
+    # calls give the same bits; the int8 kernels' f64 sums are exact, so they
+    # equal the plain version bit for bit
     shape, rows, cols, vals = _hub_graph() if graph == "hub" else _one_block_graph()
     dedup = kernel.startswith("dedup")
     pack = tsp.pack_blocked_dedup if dedup else tsp.pack_blocked
     tb = pack(rows, cols, vals, shape, bf16=mode == "bf16", device=cuda)
+    tb = tb.replace(int8=mode == "int8")
+    if mode == "int8":
+        d = max(d, 32)
     if graph == "one_block":
         live_blocks = (tb.local_rows < tb.rb).any(dim=1)
         assert tb.n_windows == 1 and int(live_blocks.sum()) == 1
@@ -93,7 +98,8 @@ def test_redesigned_kernels_match_plain_and_repeat(cuda, mode, kernel, graph, d)
         assert int((rows == 0).sum()) > tsp.WARPS_PER_CTA * tsp.ROW_SLOTS  # the hub row
     x = torch.randn(shape[1], d, device=cuda, generator=torch.Generator(cuda).manual_seed(4))
     target = {"dedup_whole_windows": 1, "dedup_split_windows": 10**6}.get(kernel)
-    name = "segment_spmm_dedup" if dedup else "segment_spmm_rows"
+    name = ("segment_spmm_dedup" if dedup else "segment_spmm_rows") + (
+        "_int8" if mode == "int8" else "")
     before = tsp.LAUNCHES[name]
     got = tsp._launch(tb, x, target)
     again = tsp._launch(tb, x, target)
@@ -101,10 +107,36 @@ def test_redesigned_kernels_match_plain_and_repeat(cuda, mode, kernel, graph, d)
     assert tsp.LAUNCHES[name] == before + 2
     assert torch.equal(got, again)
     want = tsp.blocked_spmm_reference(tb, x)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    if mode == "int8":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
     empty = np.setdiff1d(np.arange(shape[0]), rows[rows < shape[0]])
     if empty.size:
         assert float(got[torch.as_tensor(empty, device=cuda)].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 256])
+def test_quantize_kernel_matches_plain_bit_for_bit(cuda, d):
+    # the two-launch quantisation against the plain torch passes on the card:
+    # a zero column (the 1e-12 floor), a column of exact half-way quotients
+    # (round half to even) and rows enough for several chunks of each launch
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2500, d)).astype(np.float32)
+    x[:, 3] = 0.0
+    x[:, 5] = np.concatenate([[127.0], (np.arange(2499) % 499 - 249) * 0.5])  # s = 1
+    x = torch.as_tensor(x, device=cuda)
+    before = tsp.LAUNCHES["quantize_int8"]
+    q, s = tsp.quantize_int8_fused(x)
+    torch.cuda.synchronize()
+    assert tsp.LAUNCHES["quantize_int8"] == before + 1
+    q_p, s_p = tsp.quantize_int8(x)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert torch.equal(s, s_p) and torch.equal(q, q_p)
+    assert float(s[3]) == np.float32(1e-12) and int(q[:, 3].abs().max()) == 0
+    assert float(s[5]) == 1.0  # q = x rounded half to even, as numpy rounds
+    np.testing.assert_array_equal(q[:, 5].cpu().numpy(), np.round(x[:, 5].cpu().numpy()))
 
 
 @pytest.mark.gpu
@@ -228,14 +260,17 @@ def test_probe_kernels_match_plain(cuda, case, mode):
     before = dict(G.LAUNCHES)
     got_g = G.resident_row_gather(table, idx)
     got_f = G.fused_window_spmm(blocked, x)
+    again = G.fused_window_spmm(blocked, x)
     torch.cuda.synchronize()
     assert G.LAUNCHES["resident_row_gather"] == before["resident_row_gather"] + 1
-    assert G.LAUNCHES["fused_window_spmm"] == before["fused_window_spmm"] + 1
+    assert G.LAUNCHES["fused_window_spmm"] == before["fused_window_spmm"] + 2
+    # each row summed by one warp in a fixed order, no atomics: the same bits
+    assert torch.equal(got_f, again)
     # the gather copies rows: exactly the plain version's
     assert torch.equal(got_g, G.resident_row_gather_reference(table, idx))
     want = G.fused_window_spmm_reference(blocked, x)
     assert got_f.shape == want.shape == (blocked.nrows, 128)
-    # the same products summed in another f32 order (shared-memory atomics)
+    # the same products summed in another f32 order
     torch.testing.assert_close(got_f, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
     if case == "empty_windows":
         assert float(got_f[200:1030].abs().max()) == 0.0

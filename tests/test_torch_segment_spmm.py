@@ -297,6 +297,84 @@ def test_dedup_parts_fill_the_card():
         tsp.pack_blocked_dedup(rows, cols, vals, shape, device="cpu", row_block=512)
 
 
+@pytest.mark.parametrize("target", [1, 66, 1000])
+@pytest.mark.parametrize("tiles", [{}, dict(edge_block=64, row_block=32, unique_block=16)],
+                         ids=["default", "small"])
+def test_dedup_int8_parts_cover_each_block_once(tiles, target):
+    # the int8 kernel's parts (dedup_parts with its own block cost) on the
+    # ML-1M-density stand-in: every block in exactly one part, the parts in
+    # block order, each window's parts consecutive and covering its blocks
+    shape, rows, cols, vals, _ = _coo("dense_windows")
+    tb = tsp.pack_blocked_dedup(rows, cols, vals, shape, device="cpu", **tiles)
+    meta = tb.block_meta.numpy()
+    cost = tsp.dedup_int8_block_cost(meta)
+    n_live = meta[:, tsp.DEDUP_WARPS * tsp.DEDUP_ROWS_PER_WARP]
+    np.testing.assert_array_equal(cost, 2 + -(-n_live // 128))  # staging, then per 128 slots
+    part_window, part_blocks, window_parts = tsp.dedup_parts(tb.window_blocks, target, cost)
+    assert part_blocks[0] == 0 and part_blocks[-1] == tb.n_blocks
+    assert (np.diff(part_blocks) >= 1).all()
+    assert window_parts[0] == 0 and window_parts[-1] == part_window.shape[0]
+    assert (np.diff(part_window) >= 0).all()
+    for w in range(tb.n_windows):
+        p0, p1 = window_parts[w], window_parts[w + 1]
+        assert p1 > p0 and (part_window[p0:p1] == w).all()
+        assert part_blocks[p0] == tb.window_blocks[w] and part_blocks[p1] == tb.window_blocks[w + 1]
+    assert part_window.shape[0] <= max(target, tb.n_windows)
+    if target >= tb.n_blocks:  # parts as small as the costs allow
+        assert np.add.reduceat(cost, part_blocks[:-1]).max() <= 2 * cost.max()
+
+
+def _bf16(v):
+    return torch.as_tensor(np.float32(v)).bfloat16().float().item()
+
+
+def _emulate_dedup_int8(tb, x, target):
+    """The int8 dedup kernel's walk in numpy: per part its blocks; per
+    block, W of each (row, column) run = bf16(f32 sum of its bf16-rounded
+    values), added as W * q[u] into the row's f64 sum; a window of one
+    part dequantised straight away, a split window's f64 tiles added in
+    part order first."""
+    q, s = tsp.quantize_int8(torch.as_tensor(x))
+    q, s = q.numpy().astype(np.float64), s.numpy()
+    rc, slot, meta = tb.order_rc.numpy(), tb.order_slot.numpy(), tb.block_meta.numpy()
+    vals, ucols = tb.vals.numpy().reshape(-1), tb.ucols.numpy()
+    n_groups = tsp.DEDUP_WARPS * tsp.DEDUP_ROWS_PER_WARP
+    part_window, part_blocks, window_parts = tsp.dedup_parts(
+        tb.window_blocks, target, tsp.dedup_int8_block_cost(meta))
+    tiles = np.zeros((part_window.shape[0], tb.rb, x.shape[1]), np.float64)
+    for p in range(part_window.shape[0]):
+        for b in range(part_blocks[p], part_blocks[p + 1]):
+            xs = q[ucols[b, : meta[b, n_groups + 1]]]
+            for k in range(n_groups):
+                row = (k % tsp.DEDUP_ROWS_PER_WARP) * tsp.DEDUP_WARPS + k // tsp.DEDUP_ROWS_PER_WARP
+                run = np.float32(0)
+                for t in range(meta[b, k], meta[b, k + 1]):
+                    run = np.float32(run + np.float32(_bf16(vals[slot[b, t]])))
+                    if t + 1 == meta[b, n_groups] or rc[b, t + 1] != rc[b, t]:
+                        tiles[p, row] += _bf16(run) * xs[rc[b, t] & 0xFFFF]
+                        run = np.float32(0)
+    out = np.zeros((tb.n_windows * tb.rb, x.shape[1]), np.float32)
+    for w in range(tb.n_windows):
+        total = tiles[window_parts[w]].copy()
+        for p in range(window_parts[w] + 1, window_parts[w + 1]):
+            total += tiles[p]
+        out[w * tb.rb:(w + 1) * tb.rb] = total.astype(np.float32) * s
+    return out[: tb.nrows]
+
+
+@pytest.mark.parametrize("target", [1, 1000], ids=["whole_windows", "split_windows"])
+@pytest.mark.parametrize("case", ["random", "empty_windows", "hub_small_tiles", "dense_windows"])
+def test_dedup_int8_walk_matches_plain_bit_for_bit(case, target):
+    # the int8 kernel's walk over its parts, with its f64 sums, equals the
+    # plain version bit for bit whether a window is one part or several
+    shape, rows, cols, vals, tiles = _coo(case)
+    tb = tsp.pack_blocked_dedup(rows, cols, vals, shape, device="cpu", **tiles)
+    tb = tb.replace(int8=True)
+    x = np.random.default_rng(7).standard_normal((shape[1], 32)).astype(np.float32)
+    want = tsp.blocked_spmm_reference(tb, torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(_emulate_dedup_int8(tb, x, target), want)
+
+
 def test_wrapper_refuses_other_devices():
     shape, rows, cols, vals, _ = _coo("random")
     tb = tsp.pack_blocked(rows, cols, vals, shape, device="cpu")
@@ -334,6 +412,24 @@ def test_int8_table_bit_for_bit():
     np.testing.assert_array_equal(scale.numpy(), jscale)
     np.testing.assert_array_equal(q.numpy(), jq)
     assert np.abs(q.numpy()).max() == 127
+    # against the JAX int8 branch itself (segment_spmm.py:569-571): a zero
+    # column and columns of exact half-way quotients (s = 1 and s = 0.5:
+    # round half to even); the wrapper takes the plain version on the CPU
+    x2 = rng.standard_normal((256, 32)).astype(np.float32)
+    x2[:, 0] = 0.0
+    x2[:, 1] = np.concatenate([[127.0], np.arange(255) * 0.5 - 63.5])
+    x2[:, 2] = x2[:, 1] * 0.5
+    jx = jnp.asarray(x2)
+    js = jnp.maximum(jnp.max(jnp.abs(jx), axis=0) / 127.0, 1e-12)
+    jq2 = jnp.clip(jnp.round(jx / js[None, :]), -127, 127).astype(jnp.int8)
+    for q2, s2 in (tsp.quantize_int8(torch.as_tensor(x2)),
+                   tsp.quantize_int8_fused(torch.as_tensor(x2))):
+        np.testing.assert_array_equal(s2.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(q2.numpy(), np.asarray(jq2))
+    assert float(s2[0]) == np.float32(1e-12) and (q2[:, 0] == 0).all()
+    assert float(s2[1]) == 1.0 and float(s2[2]) == 0.5
+    np.testing.assert_array_equal(q2[:, 1].numpy(), np.round(x2[:, 1]))  # half to even
+    assert (np.abs(x2[1:, 1] % 1) == 0.5).sum() > 100  # ties, both parities
 
 
 @pytest.mark.parametrize("with_vals", [False, True], ids=["x", "x_and_vals"])
