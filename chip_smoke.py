@@ -76,7 +76,30 @@ Phases, in order; any failure exits non-zero:
  11. HGNN, HD2 and HGNNAblation (mode wohyper) at full width at the LastFM
      shape: one encode and one step through the kernels against the plain
      versions, their launches, then 5 replayed steps (a replay's launches
-     counted in the trace) and the replayed step's times.
+     counted in the trace) and the replayed step's times;
+ 12. LightGCN at full width (width 64, 2 layers, reg 0.1, batch 2048, bf16
+     operand) at the LastFM shape (kernel 1) and at ML-1M density (kernel
+     2): one step through the kernels against the plain versions (loss and
+     every gradient), 4 launches a step and 2 an encode, then the main path
+     (a whole `Recommender.train()` epoch at the LastFM shape, its
+     examples/s and Recall@20 beside the untrained state's; 5 `Trainer`
+     steps at ML-1M density), top-20 for 8 users through `Retriever`, and
+     the replayed step bit for bit the eager step after 1 and 8 steps;
+ 13. the other twelve models that read only the CF adjacency (MF, HCCF,
+     HGCN, SHT, DirectAU, SimGCL, XSimGCL, NCL, MixGCF, SSL4Rec, BUIR,
+     SelfCF) at the LastFM shape with their MODEL_DEFAULTS, width 64 and
+     the bf16 operand: the encode and one step through the kernels against
+     the plain versions with the launches of `ZOO`, NCL's k-means
+     `epoch_setup` on the card, the replayed step bit for bit the eager
+     step (BUIR's `update_extras` inside the graph) and its times;
+ 14. KHGRec's joint encode (HGDR_JOINT) in phase 6's configuration: 4
+     launches an encode and 8 a step, against the plain versions, equal to
+     the unfused encode, the replayed step bit for bit the eager step, and
+     its wall and device time beside the unfused step's (16 launches) on the
+     same device data.
+
+Each phase's seconds are printed as it ends (`[time]`), and all of them
+with the total before the result lines.
 
 The wrappers' launch counts (`LAUNCHES`) count Python calls: in graph mode
 a branch's eager first step and its capture, never a replay. The launches
@@ -228,11 +251,29 @@ PROP_CACHE_STEPS, PROP_CACHE_RUN = 8, 16  # K, and the Trainer steps run with it
 # runs differ (float atomics in the index additions), within GRAPH_RTOL of each tensor's scale
 GRAPH_COMPARE_STEPS = (1, 8)
 GRAPH_RTOL = 1e-5
+TRACE_ATTEMPTS = 3  # traces taken before a launch count is held wrong
 # the KHGRec family's other members at full width: (model, mode): SpMM launches of an encode (a
 # step has twice as many); HGNNAblation's wohyper conv is one hop, 6 products
 FAMILY = {("HGNN", "full"): 8, ("HD2", "full"): 8, ("HGNNAblation", "wohyper"): 6}
 FAMILY_REPLAYS = 5
 FAMILY_GRAD_FLOOR = 1e-2
+# LightGCN at full width: the LightGCN paper's and SELFRec's LightGCN.conf width 64,
+# MODEL_DEFAULTS' 2 layers and reg 0.1, batch 2048, the bf16 gathered operand
+LIGHTGCN_TRAIN = dict(embedding_size=64, n_layers=2, reg=0.1, batch_size=2048,
+                      compute_dtype="bfloat16", eval_user_batch=512)
+# (shape, the kernel its layout runs, whether a whole Recommender.train() epoch runs)
+LIGHTGCN_PHASES = (("lastfm", "segment_spmm_rows", True), ("ml1m", "segment_spmm_dedup", False))
+# the adjacency-only zoo at the LastFM shape, each with its MODEL_DEFAULTS, width 64 and the
+# bf16 gathered operand: name: (SpMM launches of a training step, of an encode), as the code
+# gives them with 2 layers (a LightGCN pass: 2 forward, 2 backward; SimGCL 3 passes, XSimGCL 2;
+# SelfCF's target pass has no backward; HGCN's conv is two-hop; HCCF's one-sided product has a
+# torch-ops backward)
+ZOO = {"LightGCN": (4, 2), "MF": (0, 0), "HCCF": (2, 2), "HGCN": (8, 4), "SHT": (4, 2),
+       "DirectAU": (0, 0), "SimGCL": (12, 2), "XSimGCL": (8, 2), "NCL": (4, 2),
+       "MixGCF": (4, 2), "SSL4Rec": (0, 0), "BUIR": (0, 0), "SelfCF": (6, 2)}
+ZOO_WIDTH = dict(embedding_size=64, compute_dtype="bfloat16", eval_user_batch=512)  # on LightGCN's data
+# KHGRec's joint encode (HGDR_JOINT): SpMM launches of a step and of an encode, joint and unfused
+JOINT_LAUNCHES, UNFUSED_LAUNCHES = (8, 4), (16, 8)
 
 
 def log(*a) -> None:
@@ -255,6 +296,22 @@ def device_ms(fn, iters: int = TIMED_ITERS, attempts: int = 10) -> tuple[float, 
     from hypergraph_diffusion_for_recommendation_tpu_torch.bench.timing import device_ms as timed
 
     return timed(fn, iters, attempts, log=log)
+
+
+def counted_profile(tag: str, fn, want: float, iters: int = 5):
+    """`device_profile` of `fn` (device ms, split by kernel, launches by
+    kernel), traced again while the trace's SpMM launches a call differ
+    from `want`, up to TRACE_ATTEMPTS traces: the profiler now and then
+    loses kernel events (seen: 18 of 20 launches of 5 eager steps, 26 of 40
+    of 5 replayed encodes). The caller still holds the last count to `want`."""
+    from hypergraph_diffusion_for_recommendation_tpu_torch.bench.timing import device_profile
+
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        dev, split, counts = device_profile(fn, iters=iters, log=log)
+        if spmm_launches(counts) == want or attempt == TRACE_ATTEMPTS:
+            return dev, split, counts
+        log(f"[timer] {tag}: the trace holds {spmm_launches(counts):g} SpMM launches a call, "
+            f"expected {want:g}: traced again")
 
 
 def kernel_only_ms(by_name: dict[str, float]) -> float:
@@ -497,7 +554,6 @@ def phase_slice(shape: str, data, layout: str, card: str) -> tuple[dict, dict]:
     import numpy as np
     import torch
 
-    from hypergraph_diffusion_for_recommendation_tpu_torch.bench.timing import device_profile
     from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
     from hypergraph_diffusion_for_recommendation_tpu_torch.eval.serving import Retriever
     from hypergraph_diffusion_for_recommendation_tpu_torch.models.khgrec import attention_extras
@@ -565,7 +621,7 @@ def phase_slice(shape: str, data, layout: str, card: str) -> tuple[dict, dict]:
     if not replay_bitwise:
         raise AssertionError(f"{shape}: the replayed encode differs from the eager encode")
     rep_ms = cuda_ms(lambda: rec.encode(), iters=5, warmup=1)
-    rep_dev, _, rep_counts = device_profile(lambda: rec.encode(), iters=5, log=log)
+    rep_dev, _, rep_counts = counted_profile(f"{shape} encode", lambda: rec.encode(), 8)
     if spmm_launches(rep_counts) != 8:
         raise AssertionError(f"{shape}: a replayed encode holds {spmm_launches(rep_counts)} SpMM "
                              f"launches, expected 8")
@@ -926,7 +982,7 @@ def full_state(tr) -> dict:
 
 
 def graph_check(tag: str, bundle, extras, batches, per_full: int, int8: bool = False,
-                k_cache: int = 0) -> dict:
+                k_cache: int = 0, bitwise: bool = False) -> dict:
     """The training step as a replayed CUDA graph against the same step run
     eagerly (`Trainer(..., graphs=False)`), from one full state (the
     parameters, Adam's state, the extras, the generators), after 1 and
@@ -937,10 +993,10 @@ def graph_check(tag: str, bundle, extras, batches, per_full: int, int8: bool = F
     launches inside one replayed step and one eager step, counted by
     kernel name in the profiler's trace (`per_full` a full step, 0 a
     cached one; int8 also `per_full` quantisations), and both steps' wall,
-    device time and idle share."""
+    device time and idle share. With `bitwise` the replay must equal the
+    eager step bit for bit in any case."""
     import torch
 
-    from hypergraph_diffusion_for_recommendation_tpu_torch.bench.timing import device_profile
     from hypergraph_diffusion_for_recommendation_tpu_torch.train import Trainer
     from hypergraph_diffusion_for_recommendation_tpu_torch.train.trainer import (
         GRAPH_WARMUP_STEPS,
@@ -981,15 +1037,15 @@ def graph_check(tag: str, bundle, extras, batches, per_full: int, int8: bool = F
         r = run(tg, n)
         errs = {k: rel(r[k], e1[k]) for k in e1}
         worst = max(errs, key=errs.get)
-        bitwise = all(torch.equal(r[k], e1[k]) for k in e1)
+        same = all(torch.equal(r[k], e1[k]) for k in e1)
         compared[n] = dict(eager_repeats_bitwise=not moved, eager_tensors_moved=len(moved),
-                           replay_bitwise=bitwise, worst=worst, worst_rel_err=errs[worst])
+                           replay_bitwise=same, worst=worst, worst_rel_err=errs[worst])
         log(f"[graph] {tag}: after {n} step(s) from one state: two eager runs "
             f"{'bit for bit equal' if not moved else f'differ in {len(moved)} tensors'}; "
-            f"replay vs eager {'bit for bit equal' if bitwise else 'not bitwise'}, worst "
+            f"replay vs eager {'bit for bit equal' if same else 'not bitwise'}, worst "
             f"{worst} rel {errs[worst]:.2e}"
             + ("" if not moved else f"; tensors that moved between eager runs: {moved[:6]}"))
-        if (not moved and not bitwise) or errs[worst] > GRAPH_RTOL:
+        if (not moved and not same) or errs[worst] > GRAPH_RTOL or (bitwise and not same):
             raise AssertionError(f"{tag}: the replayed steps differ from the eager steps "
                                  f"({worst} rel {errs[worst]:.2e})")
     out = dict(tag=tag, compared=compared, branches={})
@@ -1000,21 +1056,23 @@ def graph_check(tag: str, bundle, extras, batches, per_full: int, int8: bool = F
             tr.train_step(*batch(0))
 
         row, splits = {}, {}
+        want = per_full if br == "full" else 0
         for mode, tr in (("replay", tg), ("eager", te)):
             wall = cuda_ms(lambda: step(tr), iters=10, warmup=2)
-            dev, split, counts = device_profile(lambda: step(tr), iters=5, log=log)
+            dev, split, counts = counted_profile(f"{tag} {br} {mode}", lambda: step(tr), want)
             splits[mode] = split
             row[mode] = dict(wall_ms=round(wall, 4), device_ms=round(dev, 4),
                              idle_share=round(max(0.0, 1.0 - dev / wall), 4),
                              spmm_launches=spmm_launches(counts),
                              quantise_launches=quantise_launches(counts),
-                             spmm_kernel_ms=round(kernel_only_ms(split), 4))
+                             spmm_kernel_ms=round(kernel_only_ms(split), 4),
+                             top_kernels={k[:60]: round(t, 4) for k, t in
+                                          sorted(split.items(), key=lambda kv: -kv[1])[:4]})
             if mode == "eager" and not compared[GRAPH_COMPARE_STEPS[-1]]["eager_repeats_bitwise"]:
                 atomics = sorted(k for k in split if any(w in k.lower() for w in
                                                          ("index", "scatter", "atomic")))
                 log(f"[graph] {tag} {br}: kernels of the step with float atomics (the order "
                     f"of their sums changes from run to run): {[k[:60] for k in atomics]}")
-        want = per_full if br == "full" else 0
         got = (row["replay"]["spmm_launches"], row["eager"]["spmm_launches"])
         log(f"[graph] {tag} {br} step: replay wall {row['replay']['wall_ms']:.4f} ms, device "
             f"{row['replay']['device_ms']:.4f}, idle {row['replay']['idle_share']:.4f} | eager "
@@ -1271,17 +1329,11 @@ def phase_prop_cache(name: str, data, card: str) -> dict:
 def phase_family(shape: str, data, card: str) -> list[dict]:
     """HGNN, HD2 and HGNNAblation (mode wohyper) at full width (phase 6's
     configuration): one encode and one training step through the kernels
-    against the plain versions (the same tolerances), their launches
-    counted, then `FAMILY_REPLAYS` replayed steps with their launches
-    counted in the profiler's trace, and the replayed step's times."""
-    from unittest import mock
-
-    import torch
-
-    from hypergraph_diffusion_for_recommendation_tpu_torch.bench.timing import device_profile
+    against the plain versions (`encode_vs_plain`, `step_vs_plain`), their
+    launches counted, then `FAMILY_REPLAYS` replayed steps with their
+    launches counted in the profiler's trace, and the replayed step's
+    times."""
     from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
-    from hypergraph_diffusion_for_recommendation_tpu_torch.ops import sparse
-    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import segment_spmm as S
     from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender, Trainer
 
     out = []
@@ -1292,54 +1344,12 @@ def phase_family(shape: str, data, card: str) -> list[dict]:
         rec.build(data)
         rec.init_weights(SEED)
         bundle = rec.bundle
-        # the encode (counted: the encode graph's eager first run and its capture)
-        _zero_spmm_launches()
-        u_emb, i_emb = rec.encode()
-        torch.cuda.synchronize()
-        enc = sum(_spmm_launches().values())
-        with mock.patch.object(sparse, "blocked_spmm", S.blocked_spmm_reference):
-            pu, pi = bundle.encode_eval(rec.extras)
-        enc_err = max(float((u_emb - pu).abs().max()), float((i_emb - pi).abs().max()))
-        scale = max(float(pu.abs().max()), float(pi.abs().max()))
-        if enc != 2 * per_enc or not enc_err <= ENCODE_RTOL * max(scale, 1.0):
-            raise AssertionError(f"{tag}: encode launched {enc} from Python (expected "
-                                 f"{2 * per_enc}), max_abs_err {enc_err:.3e} at scale {scale:.3f}")
-        # one step through the kernels and through the plain versions: the
-        # same batch, keys and feature-dropout generator seed
+        _, enc_err, _ = encode_vs_plain(tag, rec.encode, bundle, rec.extras, per_enc)
         trainer = Trainer(bundle, seed=SEED, extras=rec.extras)
         batches = trainer.sample_epoch()
         n_b = batches[0].shape[0]
         batch = tuple(t[0] for t in batches)
-        keys = trainer.edge_keys()
-        names, params = zip(*bundle.module.named_parameters())
-
-        def loss_and_grads():
-            gen = torch.Generator(DEVICE).manual_seed(SEED)
-            loss, _ = bundle.batch_loss(rec.extras, batch, keys, gen)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-            torch.cuda.synchronize()
-            return float(loss.detach()), grads
-
-        _zero_spmm_launches()
-        loss_k, grads_k = loss_and_grads()
-        step = sum(_spmm_launches().values())
-        with mock.patch.object(sparse, "blocked_spmm", S.blocked_spmm_reference):
-            loss_p, grads_p = loss_and_grads()
-        loss_rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
-        # a gradient far below the model's largest is held to FAMILY_GRAD_FLOOR
-        # of that instead of its own scale: the attention's key bias has a
-        # zero gradient in exact arithmetic (the softmax ignores a shift its
-        # rows share), so both sides' values are rounding noise
-        g_max = max(float(gp.abs().max()) for gp in grads_p if gp is not None)
-        grad_rel = {n: float((gk - gp).abs().max())
-                    / max(float(gp.abs().max()), FAMILY_GRAD_FLOOR * g_max, 1e-30)
-                    for n, gk, gp in zip(names, grads_k, grads_p) if gk is not None}
-        worst = max(grad_rel, key=grad_rel.get)
-        if (step != 2 * per_enc or not loss_rel <= LOSS_RTOL or grad_rel[worst] > TRAIN_RTOL
-                or not all(torch.isfinite(g).all() for g in grads_k if g is not None)):
-            raise AssertionError(f"{tag}: a step launched {step} (expected {2 * per_enc}); "
-                                 f"loss rel {loss_rel:.2e}, worst gradient {worst} rel "
-                                 f"{grad_rel[worst]:.2e}")
+        step = step_vs_plain(tag, bundle, rec.extras, batch, trainer.edge_keys(), 2 * per_enc)
         # the main path: replayed steps
         n_run = python_steps(1 << 30) + FAMILY_REPLAYS  # warm-up, capture, replays
         step_keys = trainer.epoch_keys(n_run)
@@ -1353,17 +1363,14 @@ def phase_family(shape: str, data, card: str) -> list[dict]:
                                  f"{loss}")
         replay = lambda: trainer.train_step(batch, step_keys[0])  # noqa: E731
         wall = cuda_ms(replay, iters=5, warmup=1)
-        dev, split, counts = device_profile(replay, iters=3, log=log)
+        dev, split, counts = counted_profile(tag, replay, 2 * per_enc, iters=3)
         if spmm_launches(counts) != 2 * per_enc:
             raise AssertionError(f"{tag}: a replayed step holds {spmm_launches(counts)} SpMM "
                                  f"launches, expected {2 * per_enc}")
         top = sorted(split.items(), key=lambda kv: -kv[1])[:5]
         summary = dict(model=name, mode=mode, shape=shape, card=card,
-                       launches_encode=per_enc, launches_step=2 * per_enc,
-                       replayed_step_launches=spmm_launches(counts),
-                       encode_max_abs_err=enc_err, loss_kernels=loss_k, loss_plain=loss_p,
-                       loss_rel_err=loss_rel, worst_grad=worst,
-                       worst_grad_rel_err=grad_rel[worst], replayed_steps=FAMILY_REPLAYS,
+                       launches_encode=per_enc, replayed_step_launches=spmm_launches(counts),
+                       encode_max_abs_err=enc_err, **step, replayed_steps=FAMILY_REPLAYS,
                        loss=loss, step_wall_ms=round(wall, 4), step_device_ms=round(dev, 4),
                        step_idle_share=round(max(0.0, 1.0 - dev / wall), 4),
                        step_spmm_kernel_ms=round(kernel_only_ms(split), 4),
@@ -1371,6 +1378,305 @@ def phase_family(shape: str, data, card: str) -> list[dict]:
         log(f"[family] {json.dumps(summary)}")
         out.append(summary)
         del rec, trainer
+    return out
+
+
+def step_vs_plain(tag: str, bundle, extras, batch, keys, want: int) -> dict:
+    """One training step's loss and every gradient through the kernels
+    (SpMM launches counted: `want`) against the same step through the plain
+    versions: the same state, batch, edge keys and a generator seeded alike
+    for the loss's draws. A gradient far below the model's largest is held
+    to FAMILY_GRAD_FLOOR of that instead of its own scale (an attention key
+    bias has a zero gradient in exact arithmetic: both sides are rounding
+    noise)."""
+    from unittest import mock
+
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops import sparse
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import segment_spmm as S
+
+    names, params = zip(*bundle.module.named_parameters())
+
+    def loss_and_grads():
+        gen = torch.Generator(DEVICE).manual_seed(SEED)
+        loss, _ = bundle.batch_loss(extras, batch, keys, gen)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads
+
+    _zero_spmm_launches()
+    loss_k, grads_k = loss_and_grads()
+    launches = _spmm_launches()
+    with mock.patch.object(sparse, "blocked_spmm", S.blocked_spmm_reference):
+        loss_p, grads_p = loss_and_grads()
+    if _spmm_launches() != launches:
+        raise AssertionError(f"{tag}: the plain versions launched a kernel")
+    loss_rel = abs(loss_k - loss_p) / max(abs(loss_p), 1e-30)
+    g_max = max(float(gp.abs().max()) for gp in grads_p if gp is not None)
+    grad_rel = {n: float((gk - gp).abs().max())
+                / max(float(gp.abs().max()), FAMILY_GRAD_FLOOR * g_max, 1e-30)
+                for n, gk, gp in zip(names, grads_k, grads_p) if gk is not None}
+    worst = max(grad_rel, key=grad_rel.get)
+    n_launches = sum(launches.values())
+    log(f"[step] {tag}: loss kernels {loss_k:.6f} plain {loss_p:.6f} (rel {loss_rel:.2e}); worst "
+        f"gradient {worst} rel {grad_rel[worst]:.2e}; SpMM launches {launches} (expected {want})")
+    if (n_launches != want or not math.isfinite(loss_k) or not loss_rel <= LOSS_RTOL
+            or grad_rel[worst] > TRAIN_RTOL
+            or not all(torch.isfinite(g).all() for g in grads_k if g is not None)):
+        raise AssertionError(f"{tag}: a step launched {n_launches} (expected {want}); loss "
+                             f"{loss_k} rel {loss_rel:.2e}, worst gradient {worst} rel "
+                             f"{grad_rel[worst]:.2e}")
+    return dict(loss_kernels=loss_k, loss_plain=loss_p, loss_rel_err=loss_rel, worst_grad=worst,
+                worst_grad_rel_err=grad_rel[worst], launches_step=n_launches,
+                launches_by_kernel=launches)
+
+
+def encode_vs_plain(tag: str, encode, bundle, extras, want: int):
+    """`encode()` (a replayed encode graph: its eager first run and its
+    capture count from Python, `want` SpMM launches each) against the
+    plain versions' encode. Returns (tables, max abs error, launches)."""
+    from unittest import mock
+
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops import sparse
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import segment_spmm as S
+
+    _zero_spmm_launches()
+    u, i = encode()
+    torch.cuda.synchronize()
+    launches = _spmm_launches()
+    with mock.patch.object(sparse, "blocked_spmm", S.blocked_spmm_reference):
+        pu, pi = bundle.encode_eval(extras)
+    err = max(float((u - pu).abs().max()), float((i - pi).abs().max()))
+    scale = max(float(pu.abs().max()), float(pi.abs().max()))
+    n = sum(launches.values())
+    if (n != 2 * want or not err <= ENCODE_RTOL * max(scale, 1.0)
+            or not (torch.isfinite(u).all() and torch.isfinite(i).all())):
+        raise AssertionError(f"{tag}: an encode launched {launches} from Python (expected "
+                             f"2 x {want}), max_abs_err {err:.3e} at table scale {scale:.3f}")
+    return (u, i), err, launches
+
+
+def step_times(check: dict) -> dict:
+    """The replayed and the eager full step's times and launches, from
+    `graph_check`."""
+    rep, eager = check["branches"]["full"]["replay"], check["branches"]["full"]["eager"]
+    return dict(step_wall_ms=rep["wall_ms"], step_device_ms=rep["device_ms"],
+                step_idle_share=rep["idle_share"], step_spmm_kernel_ms=rep["spmm_kernel_ms"],
+                replayed_step_launches=rep["spmm_launches"], top_kernels=rep["top_kernels"],
+                eager_step_wall_ms=eager["wall_ms"], eager_step_device_ms=eager["device_ms"],
+                eager_step_idle_share=eager["idle_share"],
+                replay_bitwise={n: c["replay_bitwise"] for n, c in check["compared"].items()})
+
+
+def serve_check(tag: str, rec, name: str) -> dict:
+    """Export the encoded tables and serve top-20 for 8 users through
+    `Retriever`: no rated item served, scores descending, the same items as
+    `Recommender.recommend`."""
+    import numpy as np
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.eval.serving import Retriever
+
+    out = OUT_DIR / f"embeddings_{name}.npz"
+    rec.export_embeddings(str(out))
+    retr = Retriever.load(str(out), device=DEVICE)
+    users = [int(u) for u in rec.inter.id2user[:: max(len(rec.inter.id2user) // 8, 1)][:8]]
+    t0 = time.time()
+    ids, scores = retr.topk(users, k=20, exclude_rated=True)
+    serve_s = time.time() - t0
+    rated = rec.cf_dev.rated_pad.cpu().numpy()
+    for row, u in enumerate(users):
+        seen = {int(rec.inter.id2item[i]) for i in rated[rec.inter.user[u]] if i >= 0}
+        if seen & set(ids[row].tolist()) or np.any(np.diff(scores[row]) > 0):
+            raise AssertionError(f"{tag}: user {u} served a rated item or unordered scores")
+        if [i for i, _ in rec.recommend(u, k=20)] != ids[row].tolist():
+            raise AssertionError(f"{tag}: Retriever and Recommender.recommend disagree")
+    log(f"[serve] {tag}: top-20 for 8 users in {serve_s:.4f} s; raw user {users[0]}: "
+        f"{ids[0][:5].tolist()}")
+    return dict(serve_s_8_users=round(serve_s, 4))
+
+
+def phase_lightgcn(shape: str, data, kname: str, card: str, fit: bool):
+    """LightGCN at full width: one step through the kernels against the
+    plain versions, 4 launches a step and 2 an encode, then the main path
+    through the replayed graphs (a whole `Recommender.train()` epoch with
+    Recall@20 beside the untrained state's, or TRAIN_STEPS Trainer steps),
+    serving through `Retriever`, and the replayed step bit for bit the eager
+    step after 1 and 8 steps (`graph_check`). Returns (summary, the
+    Recommender, whose CF device data the zoo phase reads)."""
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender, Trainer
+
+    tag = f"LightGCN/{shape}"
+    per_step, per_enc = ZOO["LightGCN"]
+    cfg = make_config("LightGCN", **LIGHTGCN_TRAIN, item_ranking=(10, 20, 40), max_epoch=1,
+                      early_stopping_steps=100)
+    t0 = time.time()
+    rec = Recommender(cfg, DEVICE)
+    rec.build(data)
+    build_s = time.time() - t0
+    bundle = rec.bundle
+    for side in (bundle.cf.adj.fwd, bundle.cf.adj.bwd):
+        b = side.blocked
+        if b is None or (b.dedup, b.bf16) != (KERNELS[kname][0] == "dedup", True):
+            raise AssertionError(f"{tag}: expected a bf16 {KERNELS[kname][0]} layout, got "
+                                 f"{b and _layout_name(b)}")
+    rec.init_weights(SEED)
+    trainer = Trainer(bundle, seed=SEED, extras=rec.extras)
+    batches = trainer.sample_epoch()
+    step = step_vs_plain(tag, bundle, rec.extras, tuple(t[0] for t in batches),
+                         trainer.edge_keys(), per_step)
+    _, enc_err, _ = encode_vs_plain(tag, rec.encode, bundle, rec.extras, per_enc)
+    untrained = rec.evaluate()
+
+    # --- the main path, counted: steps and encodes as replayed CUDA graphs
+    _zero_spmm_launches()
+    t0 = time.time()
+    if fit:
+        result = rec.train(quiet=False)
+        n_steps, n_encodes = rec.trainer.n_batches, 2  # the epoch's eval, the best state's
+        loss = result.history[-1].losses["train_loss"]
+    else:
+        for s in range(TRAIN_STEPS):
+            i = s % batches[0].shape[0]
+            loss_t, _ = trainer.train_step(tuple(t[i] for t in batches), trainer.edge_keys())
+        n_steps, n_encodes = TRAIN_STEPS, 0
+        loss = float(loss_t)
+        rec.encode()
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    launches = _spmm_launches()
+    # from Python: each branch's eager first step and its capture, and in the
+    # epoch the trainer's encode graph's eager first run and its capture
+    want = per_step * python_steps(n_steps) + (2 * per_enc if n_encodes else 0)
+    if set(launches) != {kname} or launches[kname] != want or not math.isfinite(loss):
+        raise AssertionError(f"{tag}: {n_steps} steps and their encodes launched {launches} "
+                             f"from Python, expected {want} of {kname}; loss {loss}")
+    summary = dict(model="LightGCN", shape=shape, kernel=kname, card=card,
+                   build_s=round(build_s, 3), n_train=int(bundle.cf.n_train), steps=n_steps,
+                   run_s=round(run_s, 3), python_launches=launches[kname], loss=loss,
+                   encode_max_abs_err=enc_err,
+                   recall20_untrained=untrained[20]["recall"], **step)
+    if fit:
+        summary.update(recall20_after_epoch=result.final_metrics[20]["recall"],
+                       examples_per_sec=round(result.examples_per_sec, 1),
+                       epoch_train_s=round(result.history[0].train_time, 4))
+        log(f"[lightgcn] {tag} one epoch ({rec.trainer.n_batches} steps): "
+            f"{result.examples_per_sec:.1f} examples/s, Recall@20 "
+            f"{result.final_metrics[20]['recall']:.5f} (untrained {untrained[20]['recall']:.5f})")
+    summary.update(serve_check(tag, rec, f"lightgcn_{shape}"))
+    check = graph_check(tag, bundle, rec.extras, batches, per_full=per_step, bitwise=True)
+    summary.update(step_times(check))
+    log(f"[lightgcn] {json.dumps(summary)}")
+    return summary, rec
+
+
+def phase_zoo(cf_dev, card: str) -> list[dict]:
+    """Every other model of the adjacency-only zoo on the LastFM-shape CF
+    data: its encode and one step through the kernels against the plain
+    versions with their launches (`ZOO`), NCL's k-means `epoch_setup` on the
+    card, then the replayed step bit for bit the eager step (`graph_check`,
+    its launches counted in the trace) and its times."""
+    import gc
+
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.models import build_model
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Trainer
+
+    out = []
+    for name, (per_step, per_enc) in ZOO.items():
+        if name == "LightGCN":
+            continue
+        tag = f"{name}/lastfm"
+        t0 = time.time()
+        bundle = build_model(make_config(name, **ZOO_WIDTH), cf_dev)
+        trainer = Trainer(bundle, seed=SEED)
+        _, enc_err, _ = encode_vs_plain(tag, trainer.encode, bundle, trainer.extras, per_enc)
+        if bundle.epoch_setup is not None:  # NCL: k-means on the card, before the epoch
+            trainer.begin_epoch()
+            cent = [v for k, v in trainer.extras.items() if k.endswith("centroids")]
+            if not cent or not all(torch.isfinite(c).all() and c.abs().sum() > 0 for c in cent):
+                raise AssertionError(f"{tag}: epoch_setup left centroids {cent}")
+        batches = trainer.sample_epoch()
+        step = step_vs_plain(tag, bundle, trainer.extras, tuple(t[0] for t in batches),
+                             trainer.edge_keys(), per_step)
+        check = graph_check(tag, bundle, trainer.extras, batches, per_full=per_step,
+                            bitwise=True)
+        summary = dict(model=name, shape="lastfm", card=card, launches_encode=per_enc,
+                       encode_max_abs_err=enc_err, **step, **step_times(check),
+                       phase_s=round(time.time() - t0, 2))
+        log(f"[zoo] {json.dumps(summary)}")
+        out.append(summary)
+        del bundle, trainer, check
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_joint(shape: str, data, card: str) -> dict:
+    """KHGRec's joint encode (HGDR_JOINT) in phase 6's configuration: the
+    encode and one step through the kernels against the plain versions, 4
+    launches an encode and 8 a step, the replayed step bit for bit the eager
+    step, and its times beside the unfused step's on the same device data."""
+    import os
+
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.models import build_model
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender, Trainer
+
+    cfg = make_config("KHGRec", **KHGREC_TRAIN, item_ranking=(10, 20, 40))
+    os.environ["HGDR_JOINT"] = "1"
+    try:
+        rec = Recommender(cfg, DEVICE)
+        rec.build(data)
+    finally:
+        del os.environ["HGDR_JOINT"]
+    rec.init_weights(SEED)
+    # each path starts from the initial state (graph_check leaves the module trained)
+    start = {k: v.clone() for k, v in rec.bundle.module.state_dict().items()}
+    out = dict(shape=shape, card=card)
+    for kind, bundle, (per_step, per_enc) in (
+            ("joint", rec.bundle, JOINT_LAUNCHES),
+            ("unfused", build_model(cfg, rec.cf_dev, rec.bundle.kg), UNFUSED_LAUNCHES)):
+        tag = f"KHGRec-{kind}/{shape}"
+        if bundle.n_edge_keys != (1 if kind == "joint" else 2):
+            raise AssertionError(f"{tag}: {bundle.n_edge_keys} edge keys a step")
+        bundle.module.load_state_dict(start)
+        trainer = Trainer(bundle, seed=SEED, extras=rec.extras)
+        (u, i), enc_err, enc_launches = encode_vs_plain(tag, trainer.encode, bundle,
+                                                        trainer.extras, per_enc)
+        if kind == "joint":
+            joint_tables = (u.clone(), i.clone())
+            layout = next(iter(enc_launches))
+        else:  # the same tables: the joint chain computes the unfused one's values
+            diff = max(float((u - joint_tables[0]).abs().max()),
+                       float((i - joint_tables[1]).abs().max()))
+            out["joint_vs_unfused_encode_max_abs_err"] = diff
+            if not diff <= ENCODE_RTOL * max(float(u.abs().max()), 1.0):
+                raise AssertionError(f"{tag}: the joint encode differs from the unfused one "
+                                     f"by {diff:.3e}")
+        batches = trainer.sample_epoch()
+        step = step_vs_plain(tag, bundle, trainer.extras, tuple(t[0] for t in batches),
+                             trainer.edge_keys(), per_step)
+        check = graph_check(tag, bundle, trainer.extras, batches, per_full=per_step,
+                            bitwise=True)
+        out[kind] = dict(encode_max_abs_err=enc_err, launches_encode=per_enc, **step,
+                         **step_times(check))
+        del trainer, check
+        torch.cuda.empty_cache()
+    out["joint_kernel"] = layout
+    log(f"[joint] {json.dumps(out)}")
+    log(f"[joint] replayed step: joint wall {out['joint']['step_wall_ms']:.4f} ms, device "
+        f"{out['joint']['step_device_ms']:.4f} | unfused wall {out['unfused']['step_wall_ms']:.4f}"
+        f" ms, device {out['unfused']['step_device_ms']:.4f}")
     return out
 
 
@@ -1395,14 +1701,24 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     t_start = time.time()
 
-    card = phase_device()
-    phase_build()
-    graphs = make_graphs()
-    rows = phase_kernels(graphs)
+    seconds = {}
+
+    def timed(name: str, fn, *args, **kw):
+        t0 = time.time()
+        out = fn(*args, **kw)
+        seconds[name] = round(time.time() - t0, 1)
+        log(f"[time] {name}: {seconds[name]} s")
+        return out
+
+    card = timed("1 device", phase_device)
+    timed("2 build", phase_build)
+    graphs = timed("data", make_graphs)
+    rows = timed("3 kernels", phase_kernels, graphs)
     summaries = []
     for shape, kname in (("lastfm", "segment_spmm_rows"), ("ml1m", "segment_spmm_dedup")):
         layout = KERNELS[kname][0]
-        launches, summary = phase_slice(shape, graphs[shape]["data"], layout, card)
+        launches, summary = timed(f"{4 if shape == 'lastfm' else 5} serving {shape}", phase_slice,
+                                  shape, graphs[shape]["data"], layout, card)
         # the encode graph's eager first run and its capture, 8 launches each
         want = {k: (2 * 8 if k == kname else 0) for k in launches}
         if launches != want:
@@ -1411,23 +1727,38 @@ def main() -> int:
         summaries.append(summary)
     trains = []
     for i, (shape, gather_layout, kname) in enumerate(TRAIN_PHASES):
-        t = phase_train(shape, graphs[shape]["data"], gather_layout, kname, card, fit=i == 0)
+        t = timed(f"6 training {shape}/{gather_layout}", phase_train, shape,
+                  graphs[shape]["data"], gather_layout, kname, card, fit=i == 0)
         # per replayed training step (the profiler's count), as the row's times
         next(r for r in rows if r["name"] == kname)["launches"] = int(t["replayed_step_launches"])
         if shape == QUANT_SHAPE and kname.endswith("_int8"):
             next(r for r in rows if r["name"] == "quantize_int8")["launches"] = int(
                 t["replayed_step_quantisations"])
         trains.append(t)
-    rows += phase_probe()
+    rows += timed("7 probe", phase_probe)
     lastfm = graphs["lastfm"]["data"]
-    hd, hd_rec = phase_hd("lastfm", lastfm, card)
-    variants = phase_hd_variants(hd_rec, card)
+    hd, hd_rec = timed("8 HGNN_HD3", phase_hd, "lastfm", lastfm, card)
+    variants = timed("9 HD variants", phase_hd_variants, hd_rec, card)
     del hd_rec
-    caches = [phase_prop_cache(name, lastfm, card) for name in ("KHGRec", "HGNN_HD3")]
-    family = phase_family("lastfm", lastfm, card)
+    caches = [timed(f"10 prop_cache {name}", phase_prop_cache, name, lastfm, card)
+              for name in ("KHGRec", "HGNN_HD3")]
+    family = timed("11 KHGRec family", phase_family, "lastfm", lastfm, card)
+    lightgcn = []
+    for shape, kname, fit in LIGHTGCN_PHASES:
+        summary, rec = timed(f"12 LightGCN {shape}", phase_lightgcn, shape,
+                             graphs[shape]["data"], kname, card, fit)
+        lightgcn.append(summary)
+        if shape == "lastfm":  # the zoo reads the same CF device data
+            zoo_cf = rec.cf_dev
+        del rec
+    zoo = timed("13 zoo", phase_zoo, zoo_cf, card)
+    del zoo_cf
+    joint = timed("14 joint", phase_joint, "lastfm", lastfm, card)
     (OUT_DIR / "summary.json").write_text(json.dumps(dict(
         kernels=rows, slices=summaries, training=trains, hd=hd, hd_variants=variants,
-        prop_cache=caches, family=family), indent=1))
+        prop_cache=caches, family=family, lightgcn=lightgcn, zoo=zoo, joint=joint,
+        seconds=seconds), indent=1))
+    log(f"[time] per phase: {json.dumps(seconds)}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -192,6 +192,24 @@ def make_adj_pair(rows, cols, vals, shape, device: torch.device | str | None = N
     )
 
 
+def blockdiag_pair(a: AdjPair, b: AdjPair, device: torch.device | str | None = None,
+                   pad_multiple: int = 8, bf16: bool = False,
+                   gather_layout: str = "auto") -> AdjPair:
+    """blockdiag(A, B) as one AdjPair, from the two pairs' host edge
+    snapshots: two independent product chains over A and B (KHGRec's CF
+    and KG encoders) run as one product over the stacked node space. The
+    kernel layout is packed under `gather_layout` and `bf16`, as the pairs'
+    own layouts are."""
+    ah, bh = a.host, b.host
+    if ah is None or bh is None:
+        raise ValueError("blockdiag_pair needs the host edges of both pairs")
+    rows = np.concatenate([ah.rows, bh.rows + ah.shape[0]])
+    cols = np.concatenate([ah.cols, bh.cols + ah.shape[1]])
+    vals = np.concatenate([ah.vals, bh.vals])
+    shape = (ah.shape[0] + bh.shape[0], ah.shape[1] + bh.shape[1])
+    return make_adj_pair(rows, cols, vals, shape, device, pad_multiple, bf16, gather_layout)
+
+
 def adj_pair_from_scipy(mat, device: torch.device | str | None = None, pad_multiple: int = 8,
                         bf16: bool = False, gather_layout: str = "auto") -> AdjPair:
     coo = mat.tocoo()

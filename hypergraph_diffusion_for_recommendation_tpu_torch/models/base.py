@@ -8,9 +8,11 @@ the host-integer age of cached propagation). A step's new extras have the
 same keys, shapes and dtypes at every step, so that the trainer copies
 them into fixed buffers (which a CUDA graph of the step reads).
 
-The KHGRec family (KHGRec, HGNN, HD2, HGNNAblation) and the HD family are
-registered so far; the rest of the zoo comes with later slices of the
-port.
+Registered so far: the KHGRec family (KHGRec, HGNN, HD2, HGNNAblation),
+the HD family, and the models that read only the CF adjacency (LightGCN,
+MF, HCCF, HGCN, SHT and the SSL family: DirectAU, SimGCL, XSimGCL, NCL,
+MixGCF, SSL4Rec, BUIR, SelfCF); the rest of the zoo comes with later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ class ModelBundle:
     # loss of one batch; aux["_new_extras"], when present, replaces the
     # extras for the NEXT step (KHGRec's attention, KHGRec.py:120-126).
     # edge_keys: one pair of uint32 dropout key words per dropped adjacency;
-    # generator: the torch.Generator on the card that feature dropout draws
-    # from (the HD family's; KHGRec has none and ignores it)
+    # generator: the torch.Generator on the card that the loss's random
+    # draws come from (feature dropout, SimGCL's noise, sampled pairs;
+    # a model without draws ignores it)
     batch_loss: Optional[Callable[..., tuple[torch.Tensor, dict]]] = None
     # adjacencies batch_loss drops edges on, so edge_keys pairs it takes
     n_edge_keys: int = 0
@@ -61,6 +64,27 @@ class ModelBundle:
     # "cached"); the trainer keeps one CUDA graph of the step per name.
     # None: one path
     step_branch: Optional[Callable[[Extras], str]] = None
+    # (extras, batch) -> new extras tensors, run before the loss from the
+    # parameters before the step (BUIR's EMA target tables); the trainer
+    # writes them into the extras buffers in place, inside the step graph
+    update_extras: Optional[Callable[[Extras, tuple], Extras]] = None
+    # (extras, generator) -> new extras tensors, run eagerly at the start of
+    # each epoch, outside the graphs (NCL's k-means centroids); the trainer
+    # copies them into the extras buffers in place, which the graphs read
+    epoch_setup: Optional[Callable[[Extras, torch.Generator], Extras]] = None
+
+
+def flax_init(module: nn.Module) -> Callable[[torch.Generator], Extras]:
+    """The `init` of a bundle without extras: flax's default initialisers
+    (`weights.init_flax`) drawn into `module` in place; no extras."""
+
+    def init(generator: torch.Generator) -> Extras:
+        from ..weights import init_flax
+
+        module.load_state_dict(init_flax(module, generator))
+        return {}
+
+    return init
 
 
 MODEL_REGISTRY: dict[str, Callable[..., ModelBundle]] = {}
@@ -77,6 +101,12 @@ def register_model(name: str):
 # Which CFDeviceData adjacency representations each model module's
 # builders consume (the JAX package's table, cut to the ported modules)
 _MODULE_DATA_NEEDS = {
+    "mf": frozenset(),
+    "lightgcn": frozenset({"adj"}),
+    "hccf": frozenset({"adj"}),
+    "hgcn": frozenset({"adj"}),
+    "sht": frozenset({"adj"}),
+    "ssl_family": frozenset({"adj"}),
     "khgrec": frozenset({"adj"}),
     "hd_family": frozenset({"adj", "b_hyper"}),
 }

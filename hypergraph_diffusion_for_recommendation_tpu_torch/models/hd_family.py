@@ -116,7 +116,7 @@ class GroupAwareEncoder(FlaxNamed):
 
 class HDModule(nn.Module):
     """Parameters under the flax module's names: `user_emb`, `item_emb`,
-    `local_enc.*`, `group_enc.*` (`weights.hd_params_from_jax`)."""
+    `local_enc.*`, `group_enc.*` (`weights.params_from_jax`)."""
 
     def __init__(self, n_users: int, n_items: int, dim: int, n_layers: int, drop_rate: float,
                  conv_form: str, last_hgcn: bool, use_local: bool, use_group: bool):

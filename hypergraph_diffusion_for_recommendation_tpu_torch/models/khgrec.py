@@ -39,17 +39,28 @@ run `cached_loss` on them, with the straight-through
 `st(prop, ego) = prop + ego - ego.detach()` into the shared entity table,
 and no SpMM. `prop_age` is a host integer: choosing the branch reads
 nothing from the card (`ModelBundle.step_branch`). Neither loss reads
-anything back to the host, so both run inside a CUDA graph. The joint
-(block-diagonal) encode is not ported yet.
+anything back to the host, so both run inside a CUDA graph.
+
+The joint encode (`HGDR_JOINT` set, the JAX package's opt-in; KHGRec and
+HGNNAblation outside mode wohyper: the two-hop CF conv, no
+self-attention): the two encoders' product chains run as one chain over
+`blockdiag_pair(A, K)`, packed under the configured layout (the JAX
+`joint_encode`, khgrec.py:192-228, builder :286-302). Each side keeps
+its own encoder's LayerNorms. Edge dropout draws one key for the joint
+matrix (`n_edge_keys` 1), where the unfused path draws one per matrix; at
+keep rate 1 the two paths compute the same tables. A step launches 8
+SpMM kernels, against 16 unfused.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 from torch import nn
 
 from ..core.config import Config
-from ..data.device import AdjPair, CFDeviceData, KGDeviceData
+from ..data.device import AdjPair, CFDeviceData, KGDeviceData, blockdiag_pair
 from ..ops import sparse as _sp
 from ..ops.losses import bpr_loss, contrast_loss_pregathered, l2_reg_loss, unique_mask
 from .base import Extras, ModelBundle, register_model
@@ -145,21 +156,55 @@ class KHGRecModule(nn.Module):
             return self.attention_item(stacked)[0]
         return stacked.mean(dim=1)
 
+    def joint_encode(self, cf: CFDeviceData, kg: KGDeviceData, att, joint_adj: AdjPair):
+        """Both encoders' forward over the block-diagonal adjacency
+        blockdiag(A, K) (the JAX `joint_encode`, khgrec.py:192-228): per
+        layer, the CF two-hop and the KG conv's two products run as two
+        products over the stacked [CF nodes; entities] rows, A_att applied
+        to the entity rows on either side; each side keeps its own encoder's
+        LayerNorm and residual. At keep rate 1 the unfused encoders' values,
+        with half the products. `joint_adj` is already edge-dropped when
+        training (one key for the joint matrix)."""
+        att_h, att_t, att_v = att
+        n_nodes, n_ent = cf.n_nodes, kg.n_entities
+        slope = self.cf_encoder.slope
+        ui = torch.cat([kg.user_idx, kg.item_idx]).long()
+        x = torch.cat([self.user_entity_emb[ui], self.user_entity_emb])
+        res = x
+        last = len(self.cf_encoder.lns) - 1
+        for k, (ln_cf, ln_kg) in enumerate(zip(self.cf_encoder.lns, self.kg_encoder.lns)):
+            z = att_matvec_t(att_h, att_t, att_v, x[n_nodes:], n_ent)
+            y = _sp.spmm_pair(joint_adj.bwd, joint_adj.fwd, torch.cat([x[:n_nodes], z]))
+            y = _sp.spmm_pair(joint_adj.fwd, joint_adj.bwd, y)
+            w = att_matvec(att_h, att_t, att_v, y[n_nodes:], n_ent)
+            conv_cf, conv_kg = y[:n_nodes], w
+            if k != last:
+                conv_cf, conv_kg = leaky(conv_cf, slope), leaky(conv_kg, slope)
+            x = torch.cat([ln_cf(conv_cf) + res[:n_nodes], ln_kg(conv_kg) + res[n_nodes:]])
+        return x[: self.n_users], x[self.n_users : n_nodes], x[n_nodes:]
+
     def forward(self, cf: CFDeviceData, kg: KGDeviceData, att, use_attention: bool = True,
-                keep_rate: float = 1.0, edge_keys=None, generator: torch.Generator | None = None):
+                keep_rate: float = 1.0, edge_keys=None, generator: torch.Generator | None = None,
+                joint_adj: AdjPair | None = None):
         """`edge_keys` (training): the (cf, kg) pair of dropout keys, each
         two uint32 words, for edge dropout at `keep_rate` on each
-        adjacency, and the self-attention blocks' feature dropout from
-        `generator`; None runs on the full graphs, without dropout."""
-        adj, kg_adj = cf.adj, kg.kg_adj
-        if edge_keys is not None and keep_rate < 1.0:
-            adj = adj.dropped(edge_keys[0], keep_rate)
-            kg_adj = kg_adj.dropped(edge_keys[1], keep_rate)
+        adjacency (with `joint_adj`, one key for the joint matrix), and the
+        self-attention blocks' feature dropout from `generator`; None runs
+        on the full graphs, without dropout."""
+        train = edge_keys is not None
         ui = torch.cat([kg.user_idx, kg.item_idx]).long()
-        # CF view over the shared table's user and item rows
-        u_cf, i_cf = self.cf_encoder(self.user_entity_emb[ui], adj, edge_keys is not None,
-                                     generator)
-        ent_kg = self.kg_encoder(self.user_entity_emb, kg_adj, att)
+        if joint_adj is not None:
+            if train and keep_rate < 1.0:
+                joint_adj = joint_adj.dropped(edge_keys[0], keep_rate)
+            u_cf, i_cf, ent_kg = self.joint_encode(cf, kg, att, joint_adj)
+        else:
+            adj, kg_adj = cf.adj, kg.kg_adj
+            if train and keep_rate < 1.0:
+                adj = adj.dropped(edge_keys[0], keep_rate)
+                kg_adj = kg_adj.dropped(edge_keys[1], keep_rate)
+            # CF view over the shared table's user and item rows
+            u_cf, i_cf = self.cf_encoder(self.user_entity_emb[ui], adj, train, generator)
+            ent_kg = self.kg_encoder(self.user_entity_emb, kg_adj, att)
         uikg = ent_kg[ui]
         u_kg, i_kg = uikg[: self.n_users], uikg[self.n_users :]
         fused = self.fuse_items(i_cf, i_kg, use_attention)
@@ -195,9 +240,17 @@ def _build_khgrec_like(name: str, use_self_att: bool = False, force_no_ssl: bool
         use_att = cfg.mode in ("full", "wossl", "wo_ssl")
         use_hyper = cfg.mode != "wohyper" if hyper_from_mode else True
         keep = 1.0 - cfg.drop_rate
+        device = cf.edge_u.device
+        # the joint (block-diagonal) encode: opt-in through HGDR_JOINT, as in
+        # the JAX package, and only where the two encoders' chains are the
+        # plain two-hop ones
+        joint = None
+        if use_hyper and not use_self_att and os.environ.get("HGDR_JOINT"):
+            joint = blockdiag_pair(cf.adj, kg.kg_adj, device, cfg.pad_multiple,
+                                   bf16=cfg.compute_dtype == "bfloat16",
+                                   gather_layout=cfg.gather_layout)
         k_cache = max(int(cfg.prop_cache_steps or 0), 0)
         use_prop_cache = k_cache > 1
-        device = cf.edge_u.device
         module = KHGRecModule(
             kg.n_entities, kg.n_relations, cf.n_users,
             cfg.hyper_dim, cfg.relation_dim, cfg.n_layers, cfg.p,
@@ -205,9 +258,9 @@ def _build_khgrec_like(name: str, use_self_att: bool = False, force_no_ssl: bool
         ).to(device)
 
         def init(generator: torch.Generator) -> Extras:
-            from ..weights import init_khgrec
+            from ..weights import init_flax
 
-            module.load_state_dict(init_khgrec(module, generator))
+            module.load_state_dict(init_flax(module, generator))
             # the JAX bundle's initial attention: b self-loops of weight 1
             b = cfg.batch_size_kg
             idx = torch.arange(b, dtype=torch.int32, device=device) % kg.n_entities
@@ -222,7 +275,7 @@ def _build_khgrec_like(name: str, use_self_att: bool = False, force_no_ssl: bool
 
         @torch.no_grad()
         def encode_eval(extras: Extras):
-            u_cf, _, _, _, _, fused = module(cf, kg, _att(extras), use_att)
+            u_cf, _, _, _, _, fused = module(cf, kg, _att(extras), use_att, joint_adj=joint)
             return u_cf, fused
 
         def transr_loss(hpn_rows: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -244,7 +297,7 @@ def _build_khgrec_like(name: str, use_self_att: bool = False, force_no_ssl: bool
             self-attention blocks draw from `generator`."""
             users, pos, neg, h, r, pt, nt = (t.long() for t in batch)
             u_cf, i_cf, ent_kg, u_kg, i_kg, fused = module(
-                cf, kg, _att(extras), use_att, keep, edge_keys, generator)
+                cf, kg, _att(extras), use_att, keep, edge_keys, generator, joint)
             # CF loss: user and pos/neg item rows in one gather over [u_cf; fused]
             n_users = cf.n_users
             upn = torch.cat([u_cf, fused])[torch.cat([users, n_users + pos, n_users + neg])]
@@ -339,7 +392,7 @@ def _build_khgrec_like(name: str, use_self_att: bool = False, force_no_ssl: bool
 
         return ModelBundle(name=name, cfg=cfg, cf=cf, kg=kg, uses_kg=True,
                            module=module, init=init, encode_eval=encode_eval,
-                           batch_loss=batch_loss, n_edge_keys=2,
+                           batch_loss=batch_loss, n_edge_keys=1 if joint is not None else 2,
                            early_stop_patience_scale=2 if use_self_att else 1,
                            step_branch=step_branch)
 

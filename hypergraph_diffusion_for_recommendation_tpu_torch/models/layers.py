@@ -1,10 +1,11 @@
 """Shared neural building blocks — the port of the JAX package's
-`models/layers.py` (the blocks the KHGRec family and the HD family use).
+`models/layers.py` (the blocks the KHGRec family, the HD family and the
+zoo use), and HGCN's `TransformerEncoderLayer`.
 
 The parameterised blocks of the HD family name their submodules after
 flax's `@nn.compact` auto-names (`Dense_0`, `LayerNorm_1`, `MLP_0`,
 `HWNNLayer_0`, ...), so a state-dict name is the flax parameter path with
-`kernel` / `scale` read as `weight` (`weights.hd_params_from_jax`).
+`kernel` / `scale` read as `weight` (`weights.params_from_jax`).
 LayerNorms take flax's epsilon, 1e-6.
 """
 
@@ -289,28 +290,35 @@ class EquivSetGNN(FlaxNamed):
         return feature_dropout(x, self.dropout, generator, train)
 
 
-class SingleHeadAttention(nn.Module):
-    """flax `MultiHeadDotProductAttention(num_heads=1, qkv_features=dim)` as
-    self-attention over one set of rows, with flax's attention dropout
-    rate 0: q, k, v projections with bias, softmax(q k^T / sqrt(dim)) v,
-    then the output projection (`query`, `key`, `value`, `out`; flax's
-    [in, heads, head_dim] and [heads, head_dim, out] kernels are torch
-    [out, in] weights here)."""
+class MultiHeadAttention(nn.Module):
+    """flax `MultiHeadDotProductAttention(num_heads, qkv_features=dim)` as
+    self-attention over one set of rows, with flax's attention dropout rate
+    0: q, k, v projections with bias, per head softmax(q k^T /
+    sqrt(head_dim)) v, then the output projection (`query`, `key`, `value`,
+    `out`; flax's [in, heads, head_dim] and [heads, head_dim, out] kernels
+    are torch [out, in] weights here, head-major)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, n_heads: int = 1):
         super().__init__()
-        self.dim = dim
+        if dim % n_heads:
+            raise ValueError(f"MultiHeadAttention: width {dim} is not a multiple of {n_heads} heads")
+        self.n_heads, self.head_dim = n_heads, dim // n_heads
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # flax scales the query before the product; the [N, N] scores are
-        # plain matmuls and a softmax, as XLA computes them in the JAX package
-        q = self.query(x) / torch.full((), float(self.dim), device=x.device).sqrt()
-        weights = torch.softmax(q @ self.key(x).T, dim=-1)
-        return self.out(weights @ self.value(x))
+        n = x.shape[0]
+
+        def heads(t):  # [N, dim] -> [heads, N, head_dim]
+            return t.reshape(n, self.n_heads, self.head_dim).transpose(0, 1)
+
+        # flax scales the query before the product; the [heads, N, N] scores
+        # are plain matmuls and a softmax, as XLA computes them in the JAX package
+        q = heads(self.query(x)) / torch.full((), float(self.head_dim), device=x.device).sqrt()
+        weights = torch.softmax(q @ heads(self.key(x)).transpose(1, 2), dim=-1)
+        return self.out((weights @ heads(self.value(x))).transpose(0, 1).reshape(n, -1))
 
 
 class SelfAttentionBlock(FlaxNamed):
@@ -321,10 +329,10 @@ class SelfAttentionBlock(FlaxNamed):
     flax's names: `MultiHeadDotProductAttention_0`, `LayerNorm_0`,
     `Dense_0`, `Dense_1`, `LayerNorm_1`. O(N^2) in the rows."""
 
-    def __init__(self, dim: int, ff_dim: int = 32, dropout: float = 0.2):
+    def __init__(self, dim: int, ff_dim: int = 32, dropout: float = 0.2, n_heads: int = 1):
         super().__init__()
         self.dropout = dropout
-        self._new("MultiHeadDotProductAttention", SingleHeadAttention(dim))
+        self._new("MultiHeadDotProductAttention", MultiHeadAttention(dim, n_heads))
         self._new("LayerNorm", nn.LayerNorm(dim, eps=LN_EPS))
         self._new("Dense", nn.Linear(dim, ff_dim))
         self._new("Dense", nn.Linear(ff_dim, dim))
@@ -338,3 +346,33 @@ class SelfAttentionBlock(FlaxNamed):
         x = self.LayerNorm_0(x + drop(self.MultiHeadDotProductAttention_0(x)))
         ff = self.Dense_1(drop(torch.relu(self.Dense_0(x))))
         return self.LayerNorm_1(x + drop(ff))
+
+
+class TransformerEncoderLayer(SelfAttentionBlock):
+    """HGCN's `torch.nn.TransformerEncoderLayer` in its post-norm form
+    inside a `TransformerEncoder(norm=LayerNorm)` (the JAX
+    `TransformerEncoderLayer`, reference HGCN.py:100-127): the
+    `SelfAttentionBlock` with two heads, then the encoder's own LayerNorm
+    (`LayerNorm_2`)."""
+
+    def __init__(self, dim: int, n_heads: int = 2, ff_dim: int = 32, dropout: float = 0.2):
+        super().__init__(dim, ff_dim, dropout, n_heads)
+        self._new("LayerNorm", nn.LayerNorm(dim, eps=LN_EPS))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.LayerNorm_2(super().forward(x, train, generator))
+
+
+class Tables(nn.Module):
+    """The user and item embedding tables (`user_emb` [U, d], `item_emb`
+    [I, d], flax's names), the parameters of MF, LightGCN and the SSL
+    family's encoders."""
+
+    def __init__(self, n_users: int, n_items: int, dim: int):
+        super().__init__()
+        self.user_emb = nn.Parameter(torch.empty(n_users, dim))
+        self.item_emb = nn.Parameter(torch.empty(n_items, dim))
+
+    def forward(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.user_emb, self.item_emb

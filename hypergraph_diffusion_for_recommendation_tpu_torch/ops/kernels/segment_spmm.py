@@ -36,7 +36,8 @@ rounds where the kernels round. `blocked_spmm` takes it only for tensors
 on the CPU; for a CUDA tensor it launches the kernel or raises.
 `blocked_spmm` is differentiable with the JAX custom VJP: dx = A^T g by a
 segment sum over the columns and, when runtime `vals` are given, dvals
-through `src`, both plain torch ops (XLA ops in JAX).
+through `src`, both plain torch ops (XLA ops in JAX) that sum in a fixed
+order, so that the backward repeats bit for bit on the card.
 
 bf16 mode (`BlockedCOO.bf16`) mirrors the TPU kernels: the X table is
 cast to bf16 once, each edge value is rounded to bf16, the dedup
@@ -792,6 +793,18 @@ def _packed_vals(blocked: BlockedCOO, vals: torch.Tensor) -> torch.Tensor:
     return torch.where(live, vals[blocked.src.reshape(-1).long()], 0.0)
 
 
+def _sum_into(n: int, ids: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """out[k] = sum of values[ids == k] over n rows, in one fixed order, so
+    that a backward repeats bit for bit and its CUDA graph's replay equals
+    it: on the card `index_put_` accumulates over a stable sort of the ids
+    (`index_add_`'s atomics add in an order that changes from run to run),
+    on the CPU `index_add_` adds in id order (`ops.sparse.scatter_sum`)."""
+    out = values.new_zeros((n,) + tuple(values.shape[1:]))
+    if out.is_cuda:
+        return out.index_put_((ids,), values, accumulate=True)
+    return out.index_add_(0, ids, values)
+
+
 class _BlockedSpmm(torch.autograd.Function):
     """A @ X with the JAX `blocked_spmm` custom VJP (segment_spmm.py:680-706)."""
 
@@ -814,13 +827,19 @@ class _BlockedSpmm(torch.autograd.Function):
         rows = rows.clamp(max=b.nrows - 1)
         cols = b.cols.reshape(-1).long()
         g_rows = g[rows] * live[:, None].to(g.dtype)
+        # the pad slots add zeros: spread them over the rows, or the fixed-order
+        # sum adds all of them one after another into one row (a LastFM-shape
+        # layout has some 16,000 pads, and HCCF's step then took 25 ms)
+        slot = torch.arange(live.numel(), device=live.device)
         dx = dvals = None
         if ctx.needs_input_grad[0]:
             # dx[c] = sum_e vals[e] * g[row_e]
-            dx = torch.zeros_like(x).index_add_(0, cols, g_rows * v[:, None].to(g.dtype))
+            dx = _sum_into(x.shape[0], torch.where(live, cols, slot % x.shape[0]),
+                           g_rows * v[:, None].to(g.dtype)).to(x.dtype)
         if vals is not None and ctx.needs_input_grad[1]:
             dv = (g_rows * x[cols]).sum(dim=-1) * live.to(g.dtype)
-            dvals = torch.zeros_like(vals).index_add_(0, b.src.reshape(-1).long(), dv)
+            src = torch.where(live, b.src.reshape(-1).long(), slot % vals.shape[0])
+            dvals = _sum_into(vals.shape[0], src, dv).to(vals.dtype)
         return dx, dvals, None
 
 

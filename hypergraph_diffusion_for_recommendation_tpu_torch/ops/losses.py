@@ -1,5 +1,5 @@
 """Training losses — the port of the JAX package's `ops/losses.py` (the
-ones KHGRec trains with), keeping the reference's quirks
+ones the ported models train with), keeping the reference's quirks
 (util/loss_torch.py): `bpr_loss` adds 1e-5 inside the log (:5-9) and
 `l2_reg_loss` sums UN-squared L2 norms (:17-21). Only the TransR KG loss
 uses `log_sigmoid` (models/khgrec.py).
@@ -46,6 +46,37 @@ def contrast_loss_pregathered(p1_raw: torch.Tensor, p2_raw: torch.Tensor, valid:
     expd = torch.exp(logits) * valid[None, :].to(logits.dtype)
     deno = torch.sum(expd, dim=-1) + 1e-8
     per = -torch.log(nume / deno)
+    vf = valid.to(per.dtype)
+    return torch.sum(per * vf) / torch.clamp(torch.sum(vf), min=1.0)
+
+
+def info_nce(view1: torch.Tensor, view2: torch.Tensor, temperature: float,
+             b_cos: bool = True) -> torch.Tensor:
+    """InfoNCE over paired rows (util/loss_torch.py:32-40): +1e-5 inside
+    the log, as the reference."""
+    if b_cos:
+        view1, view2 = _l2_normalize(view1), _l2_normalize(view2)
+    pos_score = torch.exp(torch.sum(view1 * view2, dim=-1) / temperature)
+    ttl_score = torch.sum(torch.exp(view1 @ view2.T / temperature), dim=1)
+    return -torch.mean(torch.log(pos_score / ttl_score + 1e-5))
+
+
+def batch_softmax_loss(user_emb: torch.Tensor, item_emb: torch.Tensor,
+                       temperature: float) -> torch.Tensor:
+    """In-batch softmax over the batch's items (util/loss_torch.py:23-30)."""
+    return info_nce(user_emb, item_emb, temperature, b_cos=True)
+
+
+def info_nce_masked(view1: torch.Tensor, view2: torch.Tensor, valid: torch.Tensor,
+                    temperature: float) -> torch.Tensor:
+    """`info_nce` over a fixed-size buffer of picked rows with a validity
+    mask (the static-shape form of torch.unique picks): masked rows leave
+    both the mean and the denominator's contrast set."""
+    v1, v2 = _l2_normalize(view1), _l2_normalize(view2)
+    pos_score = torch.exp(torch.sum(v1 * v2, dim=-1) / temperature)
+    logits = torch.exp(v1 @ v2.T / temperature) * valid[None, :].to(view1.dtype)
+    ttl = torch.sum(logits, dim=1)
+    per = -torch.log(pos_score / ttl + 1e-5)
     vf = valid.to(per.dtype)
     return torch.sum(per * vf) / torch.clamp(torch.sum(vf), min=1.0)
 

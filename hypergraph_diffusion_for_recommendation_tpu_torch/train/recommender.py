@@ -81,7 +81,7 @@ class Recommender:
 
     def load_weights(self, state_dict: dict, extras: dict) -> None:
         """Trained weights, e.g. from `weights.khgrec_params_from_jax` or
-        `weights.hd_params_from_jax`; extras that are not tensors (the
+        `weights.params_from_jax`; extras that are not tensors (the
         cached-propagation age) are kept as they are."""
         self.bundle.module.load_state_dict(state_dict)
         self.extras = {k: v.to(self.device) if torch.is_tensor(v) else v

@@ -23,6 +23,12 @@ host once an epoch. The encode is a replayed graph too (`encode`).
 card; on the CPU they always run eagerly. A capture that meets a host
 sync raises: there is no eager fallback.
 
+Two hooks of the JAX trainer: a bundle's `update_extras` runs inside the
+step (and its graph) before the loss, from the parameters before the
+update (BUIR's EMA targets), and its `epoch_setup` runs eagerly at the
+start of each epoch (NCL's k-means); both write the extras buffers in
+place.
+
 Parity points:
   * best-model vote: at K = max(topN), count the metrics that worsened
     against those that improved; a majority of improvements is a new
@@ -39,8 +45,9 @@ Randomness comes from explicit generators seeded with `cfg.seed`: a CPU
 one for the initial weights (the same as `Recommender.init_weights`), a
 CPU one for the edge-dropout key words and the exact sampler's seeds, one
 on the card for the redraw sampler, and one on the card that feature
-dropout draws from (passed to `batch_loss`; each step graph draws from
-it at replay). A model with cached propagation keeps its step counter as
+dropout and the losses' other draws come from (passed to `batch_loss`;
+each step graph draws from it at replay; `epoch_setup` draws from it
+eagerly). A model with cached propagation keeps its step counter as
 a host integer in the extras, so no step waits on the card to pick its
 branch. Meshes, checkpoints and the alternating KGAT path wait.
 """
@@ -217,7 +224,13 @@ class Trainer:
         backward, clip, Adam, the new extras tensors written into their
         buffers, the loss and aux terms added to the epoch's sums. Returns
         (stats: the loss then the aux terms in `_aux_names` order, the
-        new host values of the extras)."""
+        new host values of the extras). A bundle's `update_extras` runs
+        first, from the parameters before the step, and its tensors are
+        written into their buffers before the loss reads them."""
+        if self.bundle.update_extras is not None:
+            with torch.no_grad():
+                for k, v in self.bundle.update_extras(self.extras, batch).items():
+                    self._store(k, v)
         self.opt.zero_grad(set_to_none=False)
         loss, aux = self.bundle.batch_loss(self.extras, batch, edge_keys, self.drop_gen)
         loss.backward()
@@ -293,7 +306,20 @@ class Trainer:
         self._version += 1
         return stats[0], dict(zip(self._aux_names, stats[1:]))
 
+    def begin_epoch(self) -> None:
+        """A bundle's `epoch_setup`, run eagerly before the epoch's steps
+        (the JAX epoch runs it before its scan), from the card generator;
+        its tensors are copied into the extras buffers in place, where the
+        step and encode graphs read them."""
+        if self.bundle.epoch_setup is None:
+            return
+        with torch.no_grad():
+            for k, v in self.bundle.epoch_setup(self.extras, self.drop_gen).items():
+                self._store(k, v)
+        self._version += 1
+
     def run_epoch(self, epoch: int) -> tuple[float, dict]:
+        self.begin_epoch()
         batches = self.sample_epoch()
         n = batches[0].shape[0]
         keys = self.epoch_keys(n)

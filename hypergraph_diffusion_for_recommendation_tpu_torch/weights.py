@@ -11,17 +11,20 @@ JAX) onto `KHGRecModule.state_dict()` names:
 
 The self-attention blocks of HGNN and HD2 (`cf_encoder/att_blocks_k`) map
 by path as the HD family's modules do (below), their attention kernels
-flattened to 2-D first. `init_khgrec` draws the same distributions the
-flax initialisers draw (Xavier-uniform tables with flax's fan convention,
+flattened to 2-D first. `init_flax` draws the same distributions the flax
+initialisers draw (Xavier-uniform tables with flax's fan convention,
 LeCun truncated-normal Dense kernels, zero biases, unit LayerNorm scales)
 from a `torch.Generator`, for runs on a machine without JAX.
 
-The HD family's modules name their submodules after flax's auto-names, so
-`hd_params_from_jax` maps any flax tree of an `HDModule` (its parameters
-or their gradients) by path: `a/b/kernel` -> `a.b.weight` transposed,
-`a/b/scale` -> `a.b.weight`, any other leaf by its own name. `init_hd`
-draws flax's initialisers for it (`HWNNLayer`: `par` from U[0, 0.99),
-`diagonal_weight_filter` from U(0.99, 1.01), a Xavier `weight_matrix`).
+The HD family's modules and the zoo's (LightGCN, MF, HCCF, HGCN, SHT,
+the SSL family) name their parameters and submodules after flax's, so
+`params_from_jax` maps any of their flax trees (parameters or gradients)
+by path: `a/b/kernel` -> `a.b.weight` transposed (an attention
+`DenseGeneral` kernel flattened to 2-D first), `a/b/scale` -> `a.b.weight`,
+any other leaf by its own name. `init_flax` draws flax's default
+initialisers for all of them (Xavier-uniform tables, LeCun normal Dense
+kernels), `init_hd` adds the `HWNNLayer` ones (`par` from U[0, 0.99),
+`diagonal_weight_filter` from U(0.99, 1.01)).
 """
 
 from __future__ import annotations
@@ -55,26 +58,35 @@ def _lecun_normal(out_features: int, in_features: int, generator: torch.Generato
     return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
-def init_khgrec(module: nn.Module, generator: torch.Generator) -> dict[str, torch.Tensor]:
-    """A fresh state dict for a `KHGRecModule`, drawn on the CPU from
-    `generator` in state-dict order (so a seed gives the same weights on
-    every device) and placed on the module's device. The attention blocks'
-    projections are flax Dense kernels too (lecun normal over fan-in)."""
+def _flax_init(owner: nn.Module, leaf: str, shape: tuple, generator: torch.Generator
+               ) -> torch.Tensor:
+    """flax's default initialiser of one parameter: a `Dense` kernel (a torch
+    `Linear` weight) LeCun truncated-normal, a bias zeros, a `LayerNorm`
+    scale ones, a table or any other parameter of two or more axes
+    Xavier-uniform (the models' `self.param(..., xavier_uniform(), ...)`)."""
+    if isinstance(owner, nn.Linear) and leaf == "weight":
+        return _lecun_normal(shape[0], shape[1], generator)
+    if leaf == "bias":
+        return torch.zeros(shape)
+    if isinstance(owner, nn.LayerNorm) and leaf == "weight":
+        return torch.ones(shape)
+    if len(shape) >= 2:
+        return _xavier_uniform(shape, generator)
+    raise KeyError(f"no flax initialiser for {type(owner).__name__}.{leaf} {shape}")
+
+
+def init_flax(module: nn.Module, generator: torch.Generator) -> dict[str, torch.Tensor]:
+    """A fresh state dict for a module of flax-initialised parameters (the
+    KHGRec family, LightGCN, MF, HCCF, HGCN, SHT, the SSL family), drawn on
+    the CPU from `generator` in state-dict order (so a seed gives the same
+    weights on every device) and placed on the module's device. The
+    attention projections are flax Dense kernels too (LeCun normal over
+    their fan-in)."""
     kinds = dict(module.named_modules())
     out: dict[str, torch.Tensor] = {}
     for name, p in module.state_dict().items():
         owner_name, _, leaf = name.rpartition(".")
-        owner = kinds[owner_name]
-        if name in ("user_entity_emb", "relation_emb", "trans_M"):
-            v = _xavier_uniform(tuple(p.shape), generator)
-        elif isinstance(owner, nn.Linear) and leaf == "weight":
-            v = _lecun_normal(p.shape[0], p.shape[1], generator)
-        elif leaf == "bias":
-            v = torch.zeros(p.shape)
-        elif isinstance(owner, nn.LayerNorm) and leaf == "weight":
-            v = torch.ones(p.shape)
-        else:
-            raise KeyError(f"init_khgrec: no initialiser for {name}")
+        v = _flax_init(kinds[owner_name], leaf, tuple(p.shape), generator)
         out[name] = v.to(device=p.device, dtype=p.dtype)
     return out
 
@@ -128,7 +140,9 @@ def khgrec_params_from_jax(
 
 def init_hd(module: nn.Module, generator: torch.Generator) -> dict[str, torch.Tensor]:
     """A fresh state dict for an `HDModule`, drawn on the CPU from
-    `generator` in state-dict order and placed on the module's device."""
+    `generator` in state-dict order and placed on the module's device: the
+    `HWNNLayer`s' own initialisers, flax's defaults (`_flax_init`) for the
+    rest."""
     from .models.layers import HWNNLayer
 
     kinds = dict(module.named_modules())
@@ -137,23 +151,12 @@ def init_hd(module: nn.Module, generator: torch.Generator) -> dict[str, torch.Te
         owner_name, _, leaf = name.rpartition(".")
         owner = kinds[owner_name]
         shape = tuple(p.shape)
-        if isinstance(owner, HWNNLayer):
-            if leaf == "par":
-                v = torch.rand(shape, generator=generator) * 0.99
-            elif leaf == "diagonal_weight_filter":
-                v = 0.99 + 0.02 * torch.rand(shape, generator=generator)
-            else:
-                v = _xavier_uniform(shape, generator)
-        elif leaf in ("user_emb", "item_emb"):
-            v = _xavier_uniform(shape, generator)
-        elif isinstance(owner, nn.Linear) and leaf == "weight":
-            v = _lecun_normal(shape[0], shape[1], generator)
-        elif leaf == "bias":
-            v = torch.zeros(shape)
-        elif isinstance(owner, nn.LayerNorm) and leaf == "weight":
-            v = torch.ones(shape)
+        if isinstance(owner, HWNNLayer) and leaf == "par":
+            v = torch.rand(shape, generator=generator) * 0.99
+        elif isinstance(owner, HWNNLayer) and leaf == "diagonal_weight_filter":
+            v = 0.99 + 0.02 * torch.rand(shape, generator=generator)
         else:
-            raise KeyError(f"init_hd: no initialiser for {name}")
+            v = _flax_init(owner, leaf, shape, generator)
         out[name] = v.to(device=p.device, dtype=p.dtype)
     return out
 
@@ -183,9 +186,13 @@ def _flax_tree_to_torch(tree: Mapping, prefix: str, device) -> dict[str, torch.T
     return out
 
 
-def hd_params_from_jax(params_np: dict, device: torch.device | str | None = None
-                       ) -> dict[str, torch.Tensor]:
-    """flax `params["params"]` tree of an HD model (or a gradient tree of
-    the same shape), as numpy arrays -> `HDModule` state dict on `device`
-    (the GPU unless the caller asks for the CPU)."""
+def params_from_jax(params_np: dict, device: torch.device | str | None = None
+                    ) -> dict[str, torch.Tensor]:
+    """flax `params["params"]` tree (or a gradient tree of the same shape),
+    as numpy arrays, of a model whose torch module names its parameters by
+    flax path -> that module's state dict on `device` (the GPU unless the
+    caller asks for the CPU). It covers the HD family and every model of
+    the zoo: LightGCN, MF, HCCF, HGCN (its `TransformerEncoderLayer_k`
+    blocks and their two-head attention kernels), SHT and the SSL family
+    (the BUIR and SelfCF `predictor`, the SSL4Rec towers)."""
     return _flax_tree_to_torch(params_np, "", resolve_device(device))

@@ -1,7 +1,7 @@
 """The port's HD family against the JAX package's.
 
 Both sides build from the same split; the JAX model is initialised and
-its parameters are carried across with `weights.hd_params_from_jax`.
+its parameters are carried across with `weights.params_from_jax`.
 `encode_eval` must agree within 1e-5 of the tables' scale (float32, sums
 in another order; measured: 7e-7). The HGNN_HD3 training loss and every
 gradient are held against `jax.value_and_grad(bundle.batch_loss)` on the
@@ -32,7 +32,7 @@ from hypergraph_diffusion_for_recommendation_tpu_torch.models import layers as t
 from hypergraph_diffusion_for_recommendation_tpu_torch.models.hd_family import HDModule
 from hypergraph_diffusion_for_recommendation_tpu_torch.ops import sparse as tsparse
 from hypergraph_diffusion_for_recommendation_tpu_torch.ops.dropout import feature_dropout
-from hypergraph_diffusion_for_recommendation_tpu_torch.weights import hd_params_from_jax, init_hd
+from hypergraph_diffusion_for_recommendation_tpu_torch.weights import params_from_jax, init_hd
 
 CFG = dict(hyper_dim=16, n_layers=2, batch_size=128, drop_rate=0.2, cl_rate=0.1, temp=0.2,
            reg=0.1)
@@ -59,7 +59,7 @@ def _pair(graphs, name, mode="full", **kw):
     jb = j_build_model(j_make_config(name, **cfg), jcf)
     params, jextras = jb.init(jax.random.PRNGKey(0))
     tb = build_model(make_config(name, **cfg), tcf)
-    tb.module.load_state_dict(hd_params_from_jax(jax.tree_util.tree_map(np.asarray,
+    tb.module.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray,
                                                                         params["params"]), "cpu"))
     return jb, params, jextras, tb
 
@@ -130,7 +130,7 @@ def test_hgnn_hd3_loss_and_grads_match_jax(graphs, mode, monkeypatch):
     assert set(aux) == set(jaux)
     for k in jaux:
         np.testing.assert_allclose(float(aux[k]), float(jaux[k]), rtol=1e-5, err_msg=k)
-    want = hd_params_from_jax(jax.tree_util.tree_map(np.asarray, jgrads["params"]), "cpu")
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, jgrads["params"]), "cpu")
     params_t = dict(tb.module.named_parameters())
     assert set(params_t) == set(want)
     for name, p in params_t.items():
@@ -244,7 +244,7 @@ def test_layers_match_jax(graphs, case):
                                           alpha=0.3)
             args, targs = (jx, jcf.adj, jnp.asarray(x0)), (tx, tcf.adj, torch.as_tensor(x0))
         params = jm.init(jax.random.PRNGKey(3), *args)
-        sd = hd_params_from_jax(jax.tree_util.tree_map(np.asarray, params["params"]), "cpu")
+        sd = params_from_jax(jax.tree_util.tree_map(np.asarray, params["params"]), "cpu")
         assert set(sd) == set(tm.state_dict())
         tm.load_state_dict(sd)
         want = jm.apply(params, *args)

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing it (and serving and training
-KHGRec and HGNN_HD3 on the CPU) pulls in neither JAX, flax, optax, nor the
-JAX package."""
+KHGRec, HGNN_HD3, LightGCN and BUIR on the CPU) pulls in neither JAX,
+flax, optax, nor the JAX package."""
 
 import subprocess
 import sys
@@ -17,7 +17,8 @@ from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import (
     build, gather_fusion, segment_spmm)
 from hypergraph_diffusion_for_recommendation_tpu_torch.ops import dropout, losses, sampling
 from hypergraph_diffusion_for_recommendation_tpu_torch.train import optim, trainer
-from hypergraph_diffusion_for_recommendation_tpu_torch.models import hd_family, layers
+from hypergraph_diffusion_for_recommendation_tpu_torch.models import (
+    hccf, hd_family, hgcn, khgrec, layers, lightgcn, mf, sht, ssl_family)
 from hypergraph_diffusion_for_recommendation_tpu_torch.bench import gather_fusion as probe, timing
 {extra}
 bad = sorted(m for m in sys.modules
@@ -62,6 +63,24 @@ assert rec.extras['prop_age'] == 2 * rec.trainer.n_batches
 """
 
 
+# the adjacency-only zoo: LightGCN and BUIR (its update_extras hook) for one epoch
+_RUN_ZOO = """
+from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+from hypergraph_diffusion_for_recommendation_tpu_torch.data import synthetic_dataset
+from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender
+data = synthetic_dataset(n_users=60, n_items=80, mean_degree=10.0, seed=1)
+for name in ('LightGCN', 'BUIR'):
+    rec = Recommender(make_config(name, embedding_size=16, batch_size=128, eval_user_batch=64,
+                                  item_ranking=(10, 20), max_epoch=1), device='cpu')
+    rec.build(data)
+    assert rec.cf_dev.b_hyper is None and rec.bundle.kg is None
+    assert set(rec.execute()) == {10, 20}
+    assert len(rec.result.history) == 1
+    assert 'rec_loss' in rec.result.history[0].losses
+assert set(rec.extras) == {'target_u', 'target_i'}
+"""
+
+
 def _probe(extra: str = ""):
     return subprocess.run([sys.executable, "-c", _PROBE.format(extra=extra)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -81,6 +100,12 @@ def test_serving_and_training_run_without_jax():
 
 def test_hd_training_runs_without_jax():
     proc = _probe(_RUN_HD)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_zoo_training_runs_without_jax():
+    proc = _probe(_RUN_ZOO)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
 

@@ -203,6 +203,27 @@ def test_blocked_spmm_gradient_reaches_x(cuda, with_vals):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dedup", [False, True], ids=["base", "dedup"])
+def test_blocked_spmm_backward_repeats_bit_for_bit(cuda, dedup):
+    # the VJP's dx and dvals sum in a fixed order on the card (no atomics),
+    # so that two backward calls, and a replayed step and its eager step,
+    # give the same bits
+    shape, rows, cols, vals = _hub_graph()
+    pack = tsp.pack_blocked_dedup if dedup else tsp.pack_blocked
+    tb = pack(rows, cols, vals, shape, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+    x = torch.randn(shape[1], 128, device=cuda, generator=gen)
+    w = torch.randn(shape[0], 128, device=cuda, generator=gen)
+    grads = []
+    for _ in range(2):
+        xx = x.clone().requires_grad_(True)
+        vv = torch.as_tensor(vals, device=cuda).requires_grad_(True)
+        (tsp.blocked_spmm(tb, xx, vv) * w).sum().backward()
+        grads.append((xx.grad, vv.grad))
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("gather_layout", ["base", "dedup", "int8", "dedup_int8"])
 def test_spmm_pair_backward_launches_the_kernel(cuda, gather_layout):
     # the backward of A @ X is A^T @ g on the transposed layout: one more

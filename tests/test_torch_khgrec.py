@@ -28,7 +28,7 @@ from hypergraph_diffusion_for_recommendation_tpu_torch.models.khgrec import (
     attention_extras,
 )
 from hypergraph_diffusion_for_recommendation_tpu_torch.weights import (
-    init_khgrec,
+    init_flax,
     khgrec_params_from_jax,
 )
 
@@ -126,7 +126,7 @@ def test_attention_extras_match_jax(both):
 
 def test_native_init_matches_flax_scales():
     module = KHGRecModule(4096, 10, 100, 64, 32, 2, 0.3)
-    sd = init_khgrec(module, torch.Generator().manual_seed(0))
+    sd = init_flax(module, torch.Generator().manual_seed(0))
     module.load_state_dict(sd)
     # flax xavier_uniform: limit sqrt(6 / (fan_in + fan_out)), the leading
     # axis of trans_M counted as receptive field
@@ -137,5 +137,5 @@ def test_native_init_matches_flax_scales():
         assert abs(float(v.std()) - limit / np.sqrt(3.0)) < 0.05 * limit
     assert torch.equal(sd["cf_encoder.lns.0.weight"], torch.ones(64))
     assert torch.equal(sd["attention_item.dense0.bias"], torch.zeros(64))
-    again = init_khgrec(module, torch.Generator().manual_seed(0))
+    again = init_flax(module, torch.Generator().manual_seed(0))
     assert all(torch.equal(sd[k], again[k]) for k in sd)

@@ -44,7 +44,7 @@ from hypergraph_diffusion_for_recommendation_tpu_torch.models import layers as t
 from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender
 from hypergraph_diffusion_for_recommendation_tpu_torch.weights import (
     _flax_tree_to_torch,
-    init_khgrec,
+    init_flax,
     khgrec_params_from_jax,
 )
 
@@ -191,7 +191,7 @@ def test_registered_with_their_switches(family):
     assert not ab.module.cf_encoder.use_hyper and ab.module.cf_encoder.att_blocks is None
     # a fresh initialisation covers the attention blocks: flax's Dense and
     # LayerNorm initialisers
-    sd = init_khgrec(hgnn, torch.Generator().manual_seed(0))
+    sd = init_flax(hgnn, torch.Generator().manual_seed(0))
     assert set(sd) == set(hgnn.state_dict())
     blk = "cf_encoder.att_blocks.1."
     assert torch.equal(sd[blk + "LayerNorm_1.weight"], torch.ones(16))

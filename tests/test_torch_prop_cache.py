@@ -35,7 +35,7 @@ from hypergraph_diffusion_for_recommendation_tpu_torch.models import layers as t
 from hypergraph_diffusion_for_recommendation_tpu_torch.ops import sparse as tsparse
 from hypergraph_diffusion_for_recommendation_tpu_torch.train import Trainer
 from hypergraph_diffusion_for_recommendation_tpu_torch.weights import (
-    hd_params_from_jax,
+    params_from_jax,
     khgrec_params_from_jax,
 )
 
@@ -85,13 +85,13 @@ def setups(tiny_kg_dataset):
     jb = j_build_model(j_make_config("HGNN_HD3", **HD3), jcf)
     params, jextras = jb.init(jax.random.PRNGKey(0))
     tb = build_model(make_config("HGNN_HD3", **HD3), tcf)
-    tb.module.load_state_dict(hd_params_from_jax(
+    tb.module.load_state_dict(params_from_jax(
         jax.tree_util.tree_map(np.asarray, params["params"]), "cpu"))
     sampler = jsam.HostExactSampler(np.asarray(jcf.edge_u), np.asarray(jcf.edge_i), jcf.n_items)
     users, pos, neg = sampler.pairwise(4, HD3["batch_size"])
     out["HGNN_HD3"] = dict(jb=jb, params=params, jextras=jextras, tb=tb, att={},
                            batch=tuple(a[0] for a in (users, pos, neg)),
-                           to_sd=lambda g: hd_params_from_jax(g, "cpu"))
+                           to_sd=lambda g: params_from_jax(g, "cpu"))
     return out
 
 

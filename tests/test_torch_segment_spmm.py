@@ -459,3 +459,35 @@ def test_blocked_spmm_grads_match_jax(dedup, with_vals):
         assert np.all(tv.grad.numpy()[rows >= shape[0]] == 0)  # pads get no gradient
     else:
         assert tv.grad is None
+
+
+def test_one_sided_spmm_grads_on_a_dropped_adjacency_match_jax():
+    # HCCF's path: A_drop @ X, one-sided (no transposed layout), its VJP's
+    # dx and dvals against jax.vjp of the JAX blocked_spmm in interpret mode
+    from hypergraph_diffusion_for_recommendation_tpu.ops import dropout as jdrop
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops import dropout as tdrop
+
+    shape, jb, tb = _pack_both("hub_small_tiles", False, canon=False)
+    _, rows, _, vals, _ = _coo("hub_small_tiles")
+    key = (2**31 + 17, 991)
+    ids = np.arange(vals.shape[0])
+    jkeep = np.asarray(jdrop.hash_keep_mask(jnp.asarray(np.array(key, np.uint32)),
+                                            jnp.asarray(ids.astype(np.uint32)), 0.5))
+    tkeep = tdrop.hash_keep_mask(key, torch.as_tensor(ids), 0.5).numpy()
+    np.testing.assert_array_equal(tkeep, jkeep)
+    assert 0 < jkeep.sum() < jkeep.size
+    v = np.where(jkeep, vals / np.float32(0.5), 0.0).astype(np.float32)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((shape[1], 16)).astype(np.float32)
+    g = rng.standard_normal((shape[0], 16)).astype(np.float32)
+    jout, vjp = jax.vjp(lambda xx, vv: jsp.blocked_spmm(jb, xx, vv, True), jnp.asarray(x),
+                        jnp.asarray(v))
+    jdx, jdv = vjp(jnp.asarray(g))
+    tx = torch.tensor(x, requires_grad=True)
+    tv = torch.tensor(v, requires_grad=True)
+    out = tsp.blocked_spmm(tb, tx, tv)
+    out.backward(torch.as_tensor(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tv.grad.numpy(), np.asarray(jdv), rtol=1e-5, atol=1e-5)
+    assert np.all(tv.grad.numpy()[rows >= shape[0]] == 0)  # pads get no gradient
