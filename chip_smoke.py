@@ -97,6 +97,28 @@ Phases, in order; any failure exits non-zero:
      the unfused encode, the replayed step bit for bit the eager step, and
      its wall and device time beside the unfused step's (16 launches) on the
      same device data.
+ 15. SGL at full width (LightGCN's width 64 and batch 2048, SGL's
+     MODEL_DEFAULTS: 2 layers, reg 0.1, drop_rate 0.1, edge dropout; bf16
+     operand) at the LastFM shape (kernel 1) and at ML-1M density (kernel 2),
+     as phase 12: the epoch's augmented views drawn by `epoch_setup` on the
+     card, one step (6 launches) and the encode (2) against the plain
+     versions, a whole `Recommender.train()` epoch at the LastFM shape (its
+     Recall@20 beside the untrained state's; at reg 0.1 SGL's un-normalised
+     L2 term collapses the first epochs, so the learning check is the same
+     epoch at reg 0, which must beat its untrained state), at ML-1M density
+     5 steps, new views, 5 more steps through the same graph, serving, and
+     the replayed step bit for bit the eager step;
+ 16. the other adjacency forms (DHCF and DHCF_diffusion at hyper_dim 64,
+     HCCF_diffusion, KGIN, KGCL, AutoCF, LRMRec) at the LastFM shape on one
+     CF device data with `raw_adj`, `raw_int` and `int_norm` and the KG
+     device data, MODEL_DEFAULTS, width 64, bf16 operand: a width-1 product
+     on raw_adj and its backward through kernel 1 (padded to width 8)
+     against the plain version; each model's encode and one step against
+     the plain versions with the launches of `ADJACENCY`; AutoCF's and
+     LRMRec's subgraph refresh against the plain one (5 launches, the same
+     decoder lists), their refresh and keep step graphs each replayed bit for
+     bit its eager step (7 and 2 launches a replayed step), and every
+     model's replayed step's wall, device time and idle share.
 
 Each phase's seconds are printed as it ends (`[time]`), and all of them
 with the total before the result lines.
@@ -274,6 +296,24 @@ ZOO = {"LightGCN": (4, 2), "MF": (0, 0), "HCCF": (2, 2), "HGCN": (8, 4), "SHT": 
 ZOO_WIDTH = dict(embedding_size=64, compute_dtype="bfloat16", eval_user_batch=512)  # on LightGCN's data
 # KHGRec's joint encode (HGDR_JOINT): SpMM launches of a step and of an encode, joint and unfused
 JOINT_LAUNCHES, UNFUSED_LAUNCHES = (8, 4), (16, 8)
+# SGL at full width: LightGCN's width 64 and batch, SGL's MODEL_DEFAULTS (2 layers, reg 0.1,
+# drop_rate 0.1, edge dropout), the bf16 gathered operand; its phases as LIGHTGCN_PHASES
+SGL_TRAIN = dict(embedding_size=64, batch_size=2048, compute_dtype="bfloat16",
+                 eval_user_batch=512)
+# the other adjacency forms at the LastFM shape with their MODEL_DEFAULTS, width 64 and the
+# bf16 gathered operand: name: (SpMM launches of a training step, of an encode), as the code
+# gives them with 2 layers (SGL: three one-sided LightGCN passes, a kernel forward each layer;
+# DHCF: two two-hop convs a layer over raw_int, forward and backward; DHCF_diffusion: scatter
+# form; HCCF_diffusion: HCCF's one-sided product; KGIN: one spmm_pair on int_norm; KGCL: three
+# LightGCN passes; AutoCF and LRMRec: {branch: launches a step}, the encoder's two one-sided
+# products, five more in a refresh: four for the seed scores, one for the mask ball)
+ADJACENCY = {"SGL": (6, 2), "DHCF": (16, 8), "DHCF_diffusion": (0, 0), "HCCF_diffusion": (2, 2),
+             "KGIN": (2, 1), "KGCL": (12, 2), "AutoCF": ({"refresh": 7, "keep": 2}, 2),
+             "LRMRec": ({"refresh": 7, "keep": 2}, 2)}
+ADJACENCY_WIDTH = dict(embedding_size=64, hyper_dim=64, compute_dtype="bfloat16",
+                       eval_user_batch=512)
+# SpMM launches of AutoCF's subgraph refresh (`update_extras`), two of them on X of width 1
+REFRESH_LAUNCHES = 5
 
 
 def log(*a) -> None:
@@ -982,7 +1022,7 @@ def full_state(tr) -> dict:
 
 
 def graph_check(tag: str, bundle, extras, batches, per_full: int, int8: bool = False,
-                k_cache: int = 0, bitwise: bool = False) -> dict:
+                bitwise: bool = False, cycle=None) -> dict:
     """The training step as a replayed CUDA graph against the same step run
     eagerly (`Trainer(..., graphs=False)`), from one full state (the
     parameters, Adam's state, the extras, the generators), after 1 and
@@ -994,7 +1034,12 @@ def graph_check(tag: str, bundle, extras, batches, per_full: int, int8: bool = F
     kernel name in the profiler's trace (`per_full` a full step, 0 a
     cached one; int8 also `per_full` quantisations), and both steps' wall,
     device time and idle share. With `bitwise` the replay must equal the
-    eager step bit for bit in any case."""
+    eager step bit for bit in any case. `cycle` = (the extras' host step
+    count, its period, {branch: (a count that takes it, SpMM launches a
+    step)}) for a loss whose branch follows a host count (cached
+    propagation: ("prop_age", K, {"full": (0, per_full), "cached": (1, 0)});
+    AutoCF's refresh every FIX_STEPS steps); the comparison then starts at
+    the first branch's step."""
     import torch
 
     from hypergraph_diffusion_for_recommendation_tpu_torch.train import Trainer
@@ -1010,12 +1055,12 @@ def graph_check(tag: str, bundle, extras, batches, per_full: int, int8: bool = F
     def batch(s):
         return tuple(t[s % n_b] for t in batches), keys[s % n_b]
 
+    count_key, period, branches = cycle or (None, 0, {"full": (None, per_full)})
     # eager first steps and captures until every branch has its graph; the
-    # comparison then starts on a full step
-    n_warm = 2 * k_cache if k_cache > 1 else GRAPH_WARMUP_STEPS + 1
+    # comparison then starts on the first branch's step (a full one)
+    n_warm = 2 * period if period else GRAPH_WARMUP_STEPS + 1
     for s in range(n_warm):
         tg.train_step(*batch(s))
-    branches = ("full", "cached") if k_cache > 1 else ("full",)
     if sorted(tg._step_graphs) != sorted(branches):
         raise AssertionError(f"{tag}: step graphs {sorted(tg._step_graphs)}, expected {branches}")
     te.train_step(*batch(0))  # Adam's state exists before the restores
@@ -1027,7 +1072,8 @@ def graph_check(tag: str, bundle, extras, batches, per_full: int, int8: bool = F
         torch.cuda.synchronize()
         return dict(full_state(tr), loss=torch.stack(losses))
 
-    def rel(a, b):
+    def rel(a, b):  # in f64: the extras may hold integer and bool lists (AutoCF's decoder)
+        a, b = a.double(), b.double()
         return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
     compared = {}
@@ -1049,14 +1095,13 @@ def graph_check(tag: str, bundle, extras, batches, per_full: int, int8: bool = F
             raise AssertionError(f"{tag}: the replayed steps differ from the eager steps "
                                  f"({worst} rel {errs[worst]:.2e})")
     out = dict(tag=tag, compared=compared, branches={})
-    for br in branches:
-        def step(tr, age=0 if br == "full" else 1):
-            if k_cache > 1:  # the branch: full at age % K == 0
-                tr.extras["prop_age"] = age
+    for br, (count, want) in branches.items():
+        def step(tr):
+            if count_key is not None:  # the count that takes this branch
+                tr.extras[count_key] = count
             tr.train_step(*batch(0))
 
         row, splits = {}, {}
-        want = per_full if br == "full" else 0
         for mode, tr in (("replay", tg), ("eager", te)):
             wall = cuda_ms(lambda: step(tr), iters=10, warmup=2)
             dev, split, counts = counted_profile(f"{tag} {br} {mode}", lambda: step(tr), want)
@@ -1312,7 +1357,7 @@ def phase_prop_cache(name: str, data, card: str) -> dict:
     if syncs:
         raise AssertionError(f"{name}: cached steps synchronised with the host at {syncs}")
     check = graph_check(f"{name}/prop_cache", rec.bundle, rec.extras, batches, per_full,
-                        k_cache=k)
+                        cycle=("prop_age", k, {"full": (0, per_full), "cached": (1, 0)}))
     br = check["branches"]
     summary = dict(model=name, card=card, k=k, steps=PROP_CACHE_RUN,
                    python_launches_per_step=per_step,
@@ -1459,10 +1504,10 @@ def encode_vs_plain(tag: str, encode, bundle, extras, want: int):
     return (u, i), err, launches
 
 
-def step_times(check: dict) -> dict:
-    """The replayed and the eager full step's times and launches, from
-    `graph_check`."""
-    rep, eager = check["branches"]["full"]["replay"], check["branches"]["full"]["eager"]
+def step_times(check: dict, branch: str = "full") -> dict:
+    """The replayed and the eager step's times and launches on one branch
+    of the loss, from `graph_check`."""
+    rep, eager = check["branches"][branch]["replay"], check["branches"][branch]["eager"]
     return dict(step_wall_ms=rep["wall_ms"], step_device_ms=rep["device_ms"],
                 step_idle_share=rep["idle_share"], step_spmm_kernel_ms=rep["spmm_kernel_ms"],
                 replayed_step_launches=rep["spmm_launches"], top_kernels=rep["top_kernels"],
@@ -1498,37 +1543,41 @@ def serve_check(tag: str, rec, name: str) -> dict:
     return dict(serve_s_8_users=round(serve_s, 4))
 
 
-def phase_lightgcn(shape: str, data, kname: str, card: str, fit: bool):
-    """LightGCN at full width: one step through the kernels against the
-    plain versions, 4 launches a step and 2 an encode, then the main path
-    through the replayed graphs (a whole `Recommender.train()` epoch with
-    Recall@20 beside the untrained state's, or TRAIN_STEPS Trainer steps),
-    serving through `Retriever`, and the replayed step bit for bit the eager
-    step after 1 and 8 steps (`graph_check`). Returns (summary, the
-    Recommender, whose CF device data the zoo phase reads)."""
+def phase_lightgcn(shape: str, data, kname: str, card: str, fit: bool, model: str = "LightGCN"):
+    """LightGCN (or SGL, `model`) at full width: one step through the kernels
+    against the plain versions, its launches a step and an encode, then the
+    main path through the replayed graphs (a whole `Recommender.train()`
+    epoch with Recall@20 beside the untrained state's, or TRAIN_STEPS
+    Trainer steps; SGL's views drawn by `epoch_setup` first, and at ML-1M
+    density drawn again for TRAIN_STEPS more steps, which must read the new
+    values), serving through `Retriever`, and the replayed step bit for bit
+    the eager step after 1 and 8 steps (`graph_check`). Returns (summary,
+    the Recommender, whose CF device data the zoo phase reads)."""
     import torch
 
     from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
     from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender, Trainer
 
-    tag = f"LightGCN/{shape}"
-    per_step, per_enc = ZOO["LightGCN"]
-    cfg = make_config("LightGCN", **LIGHTGCN_TRAIN, item_ranking=(10, 20, 40), max_epoch=1,
-                      early_stopping_steps=100)
+    tag = f"{model}/{shape}"
+    per_step, per_enc = ZOO[model] if model in ZOO else ADJACENCY[model]
+    cfg = make_config(model, **(SGL_TRAIN if model == "SGL" else LIGHTGCN_TRAIN),
+                      item_ranking=(10, 20, 40), max_epoch=1, early_stopping_steps=100)
     t0 = time.time()
     rec = Recommender(cfg, DEVICE)
     rec.build(data)
     build_s = time.time() - t0
     bundle = rec.bundle
-    for side in (bundle.cf.adj.fwd, bundle.cf.adj.bwd):
+    mats = (bundle.cf.adj, bundle.cf.raw_adj) if model == "SGL" else (bundle.cf.adj,)
+    for side in (m for pair in mats for m in (pair.fwd, pair.bwd)):
         b = side.blocked
         if b is None or (b.dedup, b.bf16) != (KERNELS[kname][0] == "dedup", True):
             raise AssertionError(f"{tag}: expected a bf16 {KERNELS[kname][0]} layout, got "
                                  f"{b and _layout_name(b)}")
     rec.init_weights(SEED)
     trainer = Trainer(bundle, seed=SEED, extras=rec.extras)
+    trainer.begin_epoch()  # SGL: the epoch's augmented views, on the card
     batches = trainer.sample_epoch()
-    step = step_vs_plain(tag, bundle, rec.extras, tuple(t[0] for t in batches),
+    step = step_vs_plain(tag, bundle, trainer.extras, tuple(t[0] for t in batches),
                          trainer.edge_keys(), per_step)
     _, enc_err, _ = encode_vs_plain(tag, rec.encode, bundle, rec.extras, per_enc)
     untrained = rec.evaluate()
@@ -1536,15 +1585,24 @@ def phase_lightgcn(shape: str, data, kname: str, card: str, fit: bool):
     # --- the main path, counted: steps and encodes as replayed CUDA graphs
     _zero_spmm_launches()
     t0 = time.time()
+    views_moved = None
     if fit:
         result = rec.train(quiet=False)
         n_steps, n_encodes = rec.trainer.n_batches, 2  # the epoch's eval, the best state's
         loss = result.history[-1].losses["train_loss"]
     else:
+        n_steps, n_encodes = TRAIN_STEPS, 0
         for s in range(TRAIN_STEPS):
             i = s % batches[0].shape[0]
             loss_t, _ = trainer.train_step(tuple(t[i] for t in batches), trainer.edge_keys())
-        n_steps, n_encodes = TRAIN_STEPS, 0
+        if bundle.epoch_setup is not None:  # a new epoch's views, read by the same graph
+            before = {k: v.clone() for k, v in trainer.extras.items()}
+            trainer.begin_epoch()
+            views_moved = all(not torch.equal(before[k], v) for k, v in trainer.extras.items())
+            for s in range(TRAIN_STEPS):
+                i = s % batches[0].shape[0]
+                loss_t, _ = trainer.train_step(tuple(t[i] for t in batches), trainer.edge_keys())
+            n_steps += TRAIN_STEPS
         loss = float(loss_t)
         rec.encode()
     torch.cuda.synchronize()
@@ -1553,26 +1611,58 @@ def phase_lightgcn(shape: str, data, kname: str, card: str, fit: bool):
     # from Python: each branch's eager first step and its capture, and in the
     # epoch the trainer's encode graph's eager first run and its capture
     want = per_step * python_steps(n_steps) + (2 * per_enc if n_encodes else 0)
-    if set(launches) != {kname} or launches[kname] != want or not math.isfinite(loss):
+    if (set(launches) != {kname} or launches[kname] != want or not math.isfinite(loss)
+            or views_moved is False):
         raise AssertionError(f"{tag}: {n_steps} steps and their encodes launched {launches} "
-                             f"from Python, expected {want} of {kname}; loss {loss}")
-    summary = dict(model="LightGCN", shape=shape, kernel=kname, card=card,
+                             f"from Python, expected {want} of {kname}; loss {loss}; a new "
+                             f"epoch's views differ from the last: {views_moved}")
+    summary = dict(model=model, shape=shape, kernel=kname, card=card,
                    build_s=round(build_s, 3), n_train=int(bundle.cf.n_train), steps=n_steps,
                    run_s=round(run_s, 3), python_launches=launches[kname], loss=loss,
                    encode_max_abs_err=enc_err,
                    recall20_untrained=untrained[20]["recall"], **step)
+    if views_moved is not None:
+        summary["views_moved_between_epochs"] = views_moved
     if fit:
         summary.update(recall20_after_epoch=result.final_metrics[20]["recall"],
                        examples_per_sec=round(result.examples_per_sec, 1),
                        epoch_train_s=round(result.history[0].train_time, 4))
-        log(f"[lightgcn] {tag} one epoch ({rec.trainer.n_batches} steps): "
+        log(f"[{model.lower()}] {tag} one epoch ({rec.trainer.n_batches} steps): "
             f"{result.examples_per_sec:.1f} examples/s, Recall@20 "
             f"{result.final_metrics[20]['recall']:.5f} (untrained {untrained[20]['recall']:.5f})")
-    summary.update(serve_check(tag, rec, f"lightgcn_{shape}"))
-    check = graph_check(tag, bundle, rec.extras, batches, per_full=per_step, bitwise=True)
+        if model == "SGL":
+            summary.update(sgl_learns(tag, data))
+    summary.update(serve_check(tag, rec, f"{model.lower()}_{shape}"))
+    check = graph_check(tag, bundle, trainer.extras, batches, per_full=per_step, bitwise=True)
     summary.update(step_times(check))
-    log(f"[lightgcn] {json.dumps(summary)}")
+    log(f"[{model.lower()}] {json.dumps(summary)}")
     return summary, rec
+
+
+def sgl_learns(tag: str, data) -> dict:
+    """SGL's loss adds reg times the UN-normalised L2 norms of the batch rows
+    (the reference's SGL.py:73, kept by the JAX package): at MODEL_DEFAULTS'
+    reg 0.1 that term outweighs BPR, and under Adam the tables of the rows
+    each batch touches shrink towards 0 in the first epochs, so Recall@20
+    falls below the untrained state's (the JAX package notes the collapse,
+    PARITY.md §3). The learning check is the same epoch at reg 0, as that
+    note advises: its Recall@20 must beat its untrained state's."""
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender
+
+    cfg = make_config("SGL", **SGL_TRAIN, reg=0.0, item_ranking=(10, 20, 40), max_epoch=1,
+                      early_stopping_steps=100)
+    rec = Recommender(cfg, DEVICE)
+    rec.build(data)
+    rec.init_weights(SEED)
+    rec.encode()
+    before = rec.evaluate()[20]["recall"]
+    after = rec.train().final_metrics[20]["recall"]
+    log(f"[sgl] {tag} at reg 0: one epoch's Recall@20 {after:.5f} (untrained {before:.5f})")
+    if not after > before:
+        raise AssertionError(f"{tag}: at reg 0 an epoch left Recall@20 at {after:.5f}, "
+                             f"untrained {before:.5f}")
+    return dict(reg0_recall20_untrained=before, reg0_recall20_after_epoch=after)
 
 
 def phase_zoo(cf_dev, card: str) -> list[dict]:
@@ -1612,6 +1702,211 @@ def phase_zoo(cf_dev, card: str) -> list[dict]:
                        encode_max_abs_err=enc_err, **step, **step_times(check),
                        phase_s=round(time.time() - t0, 2))
         log(f"[zoo] {json.dumps(summary)}")
+        out.append(summary)
+        del bundle, trainer, check
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def width_one_check(tag: str, raw_adj) -> dict:
+    """A width-1 product on raw_adj (AutoCF's operands) and its backward run
+    kernel 1 on X padded to width 8 (one launch and one padding each way),
+    against the plain version."""
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops import sparse
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import segment_spmm as S
+
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+    x = torch.rand(raw_adj.fwd.ncols, 1, device=DEVICE, generator=gen).requires_grad_(True)
+    g = torch.rand(raw_adj.fwd.nrows, 1, device=DEVICE, generator=gen)
+    _zero_spmm_launches()
+    padded = S.PADDED["calls"]
+    y = sparse.spmm_pair(raw_adj.fwd, raw_adj.bwd, x)
+    (dx,) = torch.autograd.grad(y, x, g)
+    torch.cuda.synchronize()
+    launches, padded = _spmm_launches(), S.PADDED["calls"] - padded
+    want = S.blocked_spmm_reference(raw_adj.fwd.blocked, x.detach())
+    want_dx = S.blocked_spmm_reference(raw_adj.bwd.blocked, g)
+    err = max(float((y - want).abs().max()), float((dx - want_dx).abs().max()))
+    scale = max(float(want.abs().max()), float(want_dx.abs().max()))
+    kname = "segment_spmm_dedup" if raw_adj.fwd.blocked.dedup else "segment_spmm_rows"
+    log(f"[width1] {tag}: y {tuple(y.shape)} and dx {tuple(dx.shape)}, launches {launches}, "
+        f"padded calls {padded}, max_abs_err {err:.3e} at scale {scale:.3e}")
+    if (launches != {kname: 2} or padded != 2 or y.shape != want.shape
+            or not err <= KERNEL_RTOL * scale):
+        raise AssertionError(f"{tag}: a width-1 product and its backward launched {launches} "
+                             f"with {padded} padded calls (expected 2 of {kname}, 2 padded); "
+                             f"max_abs_err {err:.3e} at scale {scale:.3e}")
+    return dict(width1_launches=launches, width1_padded_calls=padded, width1_max_abs_err=err)
+
+
+def refresh_vs_plain(tag: str, bundle, trainer, batch) -> dict:
+    """AutoCF's subgraph refresh (`update_extras` on a refresh step) through
+    the kernels against the plain versions from one generator state:
+    REFRESH_LAUNCHES launches, the seeds' decoder lists and masks equal, the
+    encoder values and the mean seed score within KERNEL_RTOL. Its output
+    is written into the trainer's extras (the next step's branch is a
+    refresh: its loss holds the seed-score term)."""
+    from unittest import mock
+
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops import sparse
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import segment_spmm as S
+
+    def refresh():
+        gen = torch.Generator(DEVICE).manual_seed(SEED)
+        with torch.no_grad():
+            out = bundle.update_extras(dict(trainer.extras, step=0), batch, gen)
+        torch.cuda.synchronize()
+        return out
+
+    _zero_spmm_launches()
+    got = refresh()
+    launches = _spmm_launches()
+    with mock.patch.object(sparse, "blocked_spmm", S.blocked_spmm_reference):
+        plain = refresh()
+    same = {k: bool(torch.equal(got[k], plain[k])) for k in ("dec_rows", "dec_cols", "dec_valid")}
+    errs = {k: float((got[k] - plain[k]).abs().max()) / max(float(plain[k].abs().max()), 1e-30)
+            for k in ("enc_vals", "samp_score")}
+    kept = int(got["dec_valid"].sum())
+    log(f"[refresh] {tag}: launches {launches} (expected {REFRESH_LAUNCHES}); decoder lists "
+        f"equal {same}; rel err {errs}; {kept} valid decoder edges of {got['dec_valid'].numel()}")
+    if (sum(launches.values()) != REFRESH_LAUNCHES or not all(same.values())
+            or max(errs.values()) > KERNEL_RTOL):
+        raise AssertionError(f"{tag}: the refresh through the kernels differs from the plain one "
+                             f"({launches}, {same}, {errs})")
+    for k, v in got.items():
+        trainer.extras[k].copy_(v)
+    trainer.extras["step"] = 0
+    return dict(refresh_launches=sum(launches.values()), refresh_rel_err=errs,
+                decoder_valid_edges=kept)
+
+
+def gt_layer_ab(tag: str, bundle, extras) -> dict:
+    """AutoCF's GT layer over the decoder of the last refresh, forward and
+    backward: device time with the hub-safe sums (`scatter_sum_hubs`,
+    `gather_rows_hubs`, as the model runs it) beside the same layer with the
+    plain fixed-order sums, whose runs of the first seed's id are added one
+    element after another. Both are held against the layer in f64: the
+    hub-safe sums, which add at most about RUN_CHUNK terms in a row, must be
+    at least as close to it as the plain ones (a serial f32 sum of 250,000
+    positive softmax terms is off by about 1e-3 of its value)."""
+    import copy
+    from unittest import mock
+
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.models import autocf
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops import sparse
+
+    gt = getattr(bundle.module, bundle.module.gt_layers[0])
+    dec = (extras["dec_rows"], extras["dec_cols"], extras["dec_valid"])
+    x32 = bundle.module.ego().detach()
+    w32 = torch.randn(x32.shape, device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(SEED))
+
+    def runner(layer, x0, w):
+        x = x0.clone().requires_grad_(True)
+
+        def run():
+            out = layer(x, *dec)
+            (g,) = torch.autograd.grad((out * w).sum(), x)
+            return out.detach(), g
+
+        return run
+
+    ref = runner(copy.deepcopy(gt).double(), x32.double(), w32.double())()
+    run = runner(gt, x32, w32)
+    hub_out = run()
+    hub_ms, _ = device_ms(run, iters=3)
+    plain = {"scatter_sum_hubs": sparse.scatter_sum, "gather_rows_hubs": lambda t, i: t[i]}
+    with mock.patch.multiple(sparse, **plain), mock.patch.multiple(autocf, **plain):
+        plain_out = run()
+        plain_ms, _ = device_ms(run, iters=3)
+
+    def errs(got):  # output, input gradient: max error over the f64 value's scale
+        return [float((a.double() - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                for a, r in zip(got, ref)]
+
+    hub_err, plain_err = errs(hub_out), errs(plain_out)
+    run_len = int(torch.bincount(dec[0].long()).max())
+    log(f"[gt] {tag}: GT layer fwd+bwd device {hub_ms:.4f} ms with the hub-safe sums, "
+        f"{plain_ms:.4f} with the plain ones (the longest run of one row id: {run_len}); "
+        f"rel err against f64 (output, gradient): hub-safe {hub_err[0]:.2e} {hub_err[1]:.2e}, "
+        f"plain {plain_err[0]:.2e} {plain_err[1]:.2e}")
+    if not all(h <= max(p, KERNEL_RTOL) for h, p in zip(hub_err, plain_err)):
+        raise AssertionError(f"{tag}: the hub-safe GT layer is further from f64 than the plain "
+                             f"one: {hub_err} against {plain_err}")
+    return dict(gt_hub_ms=round(hub_ms, 4), gt_plain_ms=round(plain_ms, 4),
+                gt_hub_rel_err=hub_err, gt_plain_rel_err=plain_err,
+                decoder_longest_row_run=run_len)
+
+
+def phase_adjacency(data, card: str) -> list[dict]:
+    """The other adjacency forms at the LastFM shape (`ADJACENCY` without
+    SGL) on one CF device data with every representation they read and the
+    KG device data: the encode and one step through the kernels against the
+    plain versions with their launches; AutoCF's and LRMRec's refresh
+    against the plain one, and their refresh and keep graphs, each replayed
+    step bit for bit its eager step; the width-1 raw_adj product on kernel 1;
+    each model's replayed-step wall, device time and idle share."""
+    import gc
+
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data import (
+        build_cf_device_data,
+        build_interaction,
+        build_kg_device_data,
+        build_knowledge,
+    )
+    from hypergraph_diffusion_for_recommendation_tpu_torch.models import build_model
+    from hypergraph_diffusion_for_recommendation_tpu_torch.models.autocf import FIX_STEPS
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Trainer
+
+    train, test, kg_df = data
+    inter = build_interaction(train, test)
+    cf = build_cf_device_data(inter, DEVICE, eval_user_multiple=ADJACENCY_WIDTH["eval_user_batch"],
+                              needs={"adj", "raw_adj", "raw_int", "int_norm"}, bf16=True)
+    kg = build_kg_device_data(build_knowledge(kg_df, inter), DEVICE, bf16=True)
+    out = [width_one_check("raw_adj/lastfm", cf.raw_adj)]
+    for name, (per_step, per_enc) in ADJACENCY.items():
+        if name == "SGL":
+            continue
+        tag = f"{name}/lastfm"
+        t0 = time.time()
+        bundle = build_model(make_config(name, **ADJACENCY_WIDTH), cf,
+                             kg if name.startswith("KG") else None)
+        trainer = Trainer(bundle, seed=SEED)
+        _, enc_err, _ = encode_vs_plain(tag, trainer.encode, bundle, trainer.extras, per_enc)
+        batches = trainer.sample_epoch()
+        batch = tuple(t[0] for t in batches)
+        summary = dict(model=name, shape="lastfm", card=card, launches_encode=per_enc,
+                       encode_max_abs_err=enc_err)
+        if isinstance(per_step, dict):  # AutoCF, LRMRec: a refresh, then its step
+            summary.update(refresh_vs_plain(tag, bundle, trainer, batch))
+            if name == "AutoCF":
+                summary.update(gt_layer_ab(tag, bundle, trainer.extras))
+            loss_launches = per_step["keep"]
+            cycle = ("step", FIX_STEPS, {"refresh": (0, per_step["refresh"]),
+                                         "keep": (1, per_step["keep"])})
+        else:
+            loss_launches, cycle = per_step, None
+        step = step_vs_plain(tag, bundle, trainer.extras, batch, trainer.edge_keys(),
+                             loss_launches)
+        check = graph_check(tag, bundle, trainer.extras, batches,
+                            per_full=loss_launches, bitwise=True, cycle=cycle)
+        summary.update(step)
+        if cycle is None:
+            summary.update(step_times(check))
+        else:
+            summary.update(step_times(check, "keep"))
+            summary["refresh_step"] = step_times(check, "refresh")
+        summary["phase_s"] = round(time.time() - t0, 2)
+        log(f"[adjacency] {json.dumps(summary)}")
         out.append(summary)
         del bundle, trainer, check
         gc.collect()
@@ -1754,10 +2049,17 @@ def main() -> int:
     zoo = timed("13 zoo", phase_zoo, zoo_cf, card)
     del zoo_cf
     joint = timed("14 joint", phase_joint, "lastfm", lastfm, card)
+    sgl = []
+    for shape, kname, fit in LIGHTGCN_PHASES:
+        summary, rec = timed(f"15 SGL {shape}", phase_lightgcn, shape, graphs[shape]["data"],
+                             kname, card, fit, model="SGL")
+        sgl.append(summary)
+        del rec
+    adjacency = timed("16 adjacency forms", phase_adjacency, lastfm, card)
     (OUT_DIR / "summary.json").write_text(json.dumps(dict(
         kernels=rows, slices=summaries, training=trains, hd=hd, hd_variants=variants,
-        prop_cache=caches, family=family, lightgcn=lightgcn, zoo=zoo, joint=joint,
-        seconds=seconds), indent=1))
+        prop_cache=caches, family=family, lightgcn=lightgcn, zoo=zoo, joint=joint, sgl=sgl,
+        adjacency=adjacency, seconds=seconds), indent=1))
     log(f"[time] per phase: {json.dumps(seconds)}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

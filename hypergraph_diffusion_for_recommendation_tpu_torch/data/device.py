@@ -239,6 +239,12 @@ class CFDeviceData:
     inv_int_norm: AdjPair | None  # row-normalised I x U
     b_hyper: AdjPair | None  # D_v^-1/2 H D_e^-1/2 (U x I)
     raw_int: AdjPair | None  # unnormalised U x I incidence H
+    raw_adj: AdjPair | None  # unnormalised (U+I)^2 bipartite adjacency
+    # bip_src[k]: the index into raw_int.fwd's values of the interaction
+    # edge behind raw_adj.fwd entry k, so that dropping a (u, i) pair zeroes
+    # both of its bipartite entries (SGL's augmented views); pads map to 0,
+    # and it is empty when raw_adj is not built
+    bip_src: torch.Tensor  # [raw_adj nnz_pad] int32
     edge_u: torch.Tensor  # [n_train] int32
     edge_i: torch.Tensor
     rated_pad: torch.Tensor  # [U, max_deg] dense item ids, pad -1 (eval masking)
@@ -289,7 +295,7 @@ class KGDeviceData:
         return dataclasses.replace(self, **kw)
 
 
-CF_FIELDS = ("adj", "int_norm", "inv_int_norm", "b_hyper", "raw_int")
+CF_FIELDS = ("adj", "int_norm", "inv_int_norm", "b_hyper", "raw_int", "raw_adj")
 
 
 def build_cf_device_data(
@@ -314,8 +320,8 @@ def build_cf_device_data(
     def want(field: str) -> bool:
         return needs is None or field in needs
 
-    def pair(field: str, mat):
-        if not want(field):
+    def pair(field: str, mat, wanted: bool | None = None):
+        if not (want(field) if wanted is None else wanted):
             return None
         return adj_pair_from_scipy(mat, device, pad_multiple, bf16, gather_layout)
 
@@ -331,6 +337,29 @@ def build_cf_device_data(
         dv_is[np.isinf(dv_is)] = 0.0
         de_is[np.isinf(de_is)] = 0.0
         b_hyper = pair("b_hyper", (sp.diags(dv_is) @ h_mat @ sp.diags(de_is)).tocsr())
+
+    # the raw bipartite adjacency, each entry tracing back to its interaction
+    # edge (the JAX data/device.py:391-413)
+    n_users, n_items = inter.n_users, inter.n_items
+    raw_adj = None
+    bip_src = np.zeros(0, np.int32)
+    if want("raw_adj"):
+        icoo = inter.interaction_mat.tocoo()
+        iorder = sort_pairs(icoo.row, icoo.col)  # raw_int.fwd's order
+        iu, ii = icoo.row[iorder], icoo.col[iorder]
+        n_int = iu.shape[0]
+        src = np.arange(n_int)
+        bip_rows = np.concatenate([iu, ii + n_users])
+        bip_cols = np.concatenate([ii + n_users, iu])
+        border = sort_pairs(bip_rows, bip_cols)
+        raw_adj = make_adj_pair(bip_rows[border], bip_cols[border],
+                                np.ones(2 * n_int, np.float32), (n_users + n_items,) * 2,
+                                device, pad_multiple, bf16, gather_layout)
+        # pad entries are inert (their rows are out of range), so any
+        # in-range source index does
+        pad_n = raw_adj.fwd.nnz_pad - 2 * n_int
+        bip_src = np.concatenate([np.concatenate([src, src])[border],
+                                  np.zeros(pad_n, np.int64)]).astype(np.int32)
 
     rated_lists = inter.rated_lists()
     rated = padded_rows_from_lists(rated_lists, fill=-1, pad_multiple=pad_multiple)
@@ -362,14 +391,16 @@ def build_cf_device_data(
         int_norm=pair("int_norm", inter.norm_interaction_mat),
         inv_int_norm=pair("inv_int_norm", inter.norm_inv_interaction_mat),
         b_hyper=b_hyper,
-        raw_int=pair("raw_int", inter.interaction_mat),
+        raw_int=pair("raw_int", inter.interaction_mat, want("raw_int") or want("raw_adj")),
+        raw_adj=raw_adj,
+        bip_src=t(bip_src),
         edge_u=t(inter.train_u),
         edge_i=t(inter.train_i),
         rated_pad=t(rated),
         rated_csr=membership_from_lists(rated_lists, device),
         eval_data=eval_data,
-        n_users=inter.n_users,
-        n_items=inter.n_items,
+        n_users=n_users,
+        n_items=n_items,
         n_train=inter.n_cf_train,
     )
 

@@ -1,6 +1,21 @@
 from .base import MODEL_REGISTRY, ModelBundle, build_model, model_data_needs, register_model
 
 # import model modules for their registrations
-from . import hccf, hd_family, hgcn, khgrec, lightgcn, mf, sht, ssl_family  # noqa: F401
+from . import (  # noqa: F401
+    autocf,
+    dhcf,
+    dhcf_diffusion,
+    hccf,
+    hccf_diffusion,
+    hd_family,
+    hgcn,
+    kgin_kgcl,
+    khgrec,
+    lightgcn,
+    mf,
+    sgl,
+    sht,
+    ssl_family,
+)
 
 __all__ = ["MODEL_REGISTRY", "ModelBundle", "build_model", "model_data_needs", "register_model"]

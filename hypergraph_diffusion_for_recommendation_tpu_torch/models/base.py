@@ -9,10 +9,11 @@ same keys, shapes and dtypes at every step, so that the trainer copies
 them into fixed buffers (which a CUDA graph of the step reads).
 
 Registered so far: the KHGRec family (KHGRec, HGNN, HD2, HGNNAblation),
-the HD family, and the models that read only the CF adjacency (LightGCN,
+the HD family, the models that read only the CF adjacency (LightGCN,
 MF, HCCF, HGCN, SHT and the SSL family: DirectAU, SimGCL, XSimGCL, NCL,
-MixGCF, SSL4Rec, BUIR, SelfCF); the rest of the zoo comes with later
-slices of the port.
+MixGCF, SSL4Rec, BUIR, SelfCF), and those of the other adjacency forms
+(SGL, DHCF, DHCF_diffusion, HCCF_diffusion, KGIN, KGCL, AutoCF, LRMRec);
+the rest of the zoo comes with later slices of the port.
 """
 
 from __future__ import annotations
@@ -64,10 +65,13 @@ class ModelBundle:
     # "cached"); the trainer keeps one CUDA graph of the step per name.
     # None: one path
     step_branch: Optional[Callable[[Extras], str]] = None
-    # (extras, batch) -> new extras tensors, run before the loss from the
-    # parameters before the step (BUIR's EMA target tables); the trainer
-    # writes them into the extras buffers in place, inside the step graph
-    update_extras: Optional[Callable[[Extras, tuple], Extras]] = None
+    # (extras, batch, generator) -> new extras tensors, run before the loss
+    # from the parameters before the step (BUIR's EMA target tables,
+    # AutoCF's masked subgraphs); the trainer writes them into the extras
+    # buffers in place, inside the step graph. `generator` is the trainer's
+    # card generator, registered with the step graphs, that its draws come
+    # from (a hook without draws ignores it)
+    update_extras: Optional[Callable[[Extras, tuple, torch.Generator], Extras]] = None
     # (extras, generator) -> new extras tensors, run eagerly at the start of
     # each epoch, outside the graphs (NCL's k-means centroids); the trainer
     # copies them into the extras buffers in place, which the graphs read
@@ -104,11 +108,17 @@ _MODULE_DATA_NEEDS = {
     "mf": frozenset(),
     "lightgcn": frozenset({"adj"}),
     "hccf": frozenset({"adj"}),
+    "hccf_diffusion": frozenset({"adj"}),
     "hgcn": frozenset({"adj"}),
     "sht": frozenset({"adj"}),
     "ssl_family": frozenset({"adj"}),
     "khgrec": frozenset({"adj"}),
+    "dhcf": frozenset({"raw_int"}),
+    "dhcf_diffusion": frozenset({"raw_int"}),
     "hd_family": frozenset({"adj", "b_hyper"}),
+    "kgin_kgcl": frozenset({"adj", "int_norm"}),
+    "autocf": frozenset({"adj", "raw_adj"}),
+    "sgl": frozenset({"adj", "raw_adj", "raw_int"}),
 }
 
 

@@ -1,6 +1,7 @@
 """Shared neural building blocks — the port of the JAX package's
 `models/layers.py` (the blocks the KHGRec family, the HD family and the
-zoo use), and HGCN's `TransformerEncoderLayer`.
+zoo use: the ED-HNN wrappers of DHCF_diffusion and HCCF_diffusion among
+them), and HGCN's `TransformerEncoderLayer`.
 
 The parameterised blocks of the HD family name their submodules after
 flax's `@nn.compact` auto-names (`Dense_0`, `LayerNorm_1`, `MLP_0`,
@@ -287,6 +288,71 @@ class EquivSetGNN(FlaxNamed):
         for _ in range(self.n_conv_layers):
             x = feature_dropout(x, self.dropout, generator, train)
             x = torch.relu(self.EquivSetConvSpMM_0(x, adj, x0, train, generator))
+        return feature_dropout(x, self.dropout, generator, train)
+
+
+class EquivSetGNNScatter(FlaxNamed):
+    """ED-HNN wrapper around the scatter-form conv for a RECTANGULAR
+    incidence (vertices x hyperedges; the JAX `EquivSetGNNScatter`, the
+    DHCF_diffusion channels, reference DHCF_diffusion.py:171-185): input
+    dropout -> Dense lift -> relu -> n x (dropout -> conv -> relu) ->
+    dropout, the conv with a LayerNorm-input MLP3 only (`Dense_0`,
+    `EquivSetConvScatter_0`)."""
+
+    def __init__(self, dim: int, n_edges: int, n_conv_layers: int = 1,
+                 input_dropout: float = 0.6, dropout: float = 0.5, alpha: float = 0.0,
+                 aggr: str = "mean"):
+        super().__init__()
+        self.n_conv_layers, self.input_dropout, self.dropout = n_conv_layers, input_dropout, dropout
+        self._new("Dense", nn.Linear(dim, dim))
+        self._new("EquivSetConvScatter", EquivSetConvScatter(
+            dim, n_edges, aggr, mlp1_layers=0, mlp2_layers=0, mlp3_layers=1, alpha=alpha,
+            dropout=dropout, normalization="ln", input_norm=True))
+
+    def forward(self, x: torch.Tensor, inc: AdjPair, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = feature_dropout(x, self.input_dropout, generator, train)
+        x = torch.relu(self.Dense_0(x))
+        x0 = x
+        for _ in range(self.n_conv_layers):
+            x = feature_dropout(x, self.dropout, generator, train)
+            x = torch.relu(self.EquivSetConvScatter_0(x, inc, x0, train, generator))
+        return feature_dropout(x, self.dropout, generator, train)
+
+
+class DenseEquivSetGNN(FlaxNamed):
+    """ED-HNN over a DENSE learnable incidence H [V, E] (the JAX
+    `DenseEquivSetGNN`, HCCF_diffusion's hyperedge branch, reference
+    HCCF_diffusion.py:193-211 and 291-317). The scatter means over the
+    positive entries of H are two masked dense products, M = (H > 0):
+
+        Xe = (M^T @ X) / colsum(M),   Xv = (M @ Xe) / rowsum(M)
+
+    H reaches the output only through M, so it gets no gradient (as in
+    JAX). Submodules `Dense_0` and `MLP_0` (LayerNorm input, one layer)."""
+
+    def __init__(self, dim: int, input_dropout: float = 0.6, dropout: float = 0.5,
+                 alpha: float = 0.0, n_conv_layers: int = 1, mlp3_layers: int = 1):
+        super().__init__()
+        self.input_dropout, self.dropout, self.alpha = input_dropout, dropout, alpha
+        self.n_conv_layers = n_conv_layers
+        self._new("Dense", nn.Linear(dim, dim))
+        self._new("MLP", MLP(dim, dim, dim, mlp3_layers, dropout, "ln", True))
+
+    def forward(self, x: torch.Tensor, incidence: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        mask = (incidence > 0).to(x.dtype)  # [V, E]
+        col = torch.clamp(mask.sum(dim=0), min=1.0)  # [E]
+        row = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)  # [V, 1]
+        x = feature_dropout(x, self.input_dropout, generator, train)
+        x = torch.relu(self.Dense_0(x))
+        x0 = x
+        for _ in range(self.n_conv_layers):
+            x = feature_dropout(x, self.dropout, generator, train)
+            xe = (mask.T @ x) / col[:, None]
+            xv = (mask @ xe) / row
+            x = (1.0 - self.alpha) * xv + self.alpha * x0
+            x = torch.relu(self.MLP_0(x, train, generator))
         return feature_dropout(x, self.dropout, generator, train)
 
 

@@ -344,7 +344,7 @@ def build_buir(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
         return {"target_u": module.user_emb.detach().clone(),
                 "target_i": module.item_emb.detach().clone()}
 
-    def update_extras(extras: Extras, batch) -> Extras:
+    def update_extras(extras: Extras, batch, generator=None) -> Extras:
         return {"target_u": m * extras["target_u"] + (1 - m) * module.user_emb.detach(),
                 "target_i": m * extras["target_i"] + (1 - m) * module.item_emb.detach()}
 

@@ -88,6 +88,8 @@ _SM_SMEM = 233472
 # which run the captured launches without Python, not at all
 LAUNCHES = {"segment_spmm_rows": 0, "segment_spmm_dedup": 0,
             "segment_spmm_rows_int8": 0, "segment_spmm_dedup_int8": 0, "quantize_int8": 0}
+# kernel calls whose X was padded to a width the kernel takes (`_launch`)
+PADDED = {"calls": 0}
 
 
 @dataclass(frozen=True)
@@ -569,10 +571,6 @@ def _check_call(blocked: BlockedCOO, x: torch.Tensor) -> None:
         )
     if x.shape[0] != blocked.ncols:
         raise ValueError(f"blocked_spmm: X has {x.shape[0]} rows, A has {blocked.ncols} columns")
-    if x.shape[1] % 8:
-        raise ValueError(f"blocked_spmm: the CUDA kernels need d % 8 == 0, got d={x.shape[1]}")
-    if blocked.int8 and x.shape[1] % 32:
-        raise ValueError(f"blocked_spmm: the int8 kernels need d % 32 == 0, got d={x.shape[1]}")
     v = blocked.vals
     if (v.dtype != torch.float32 or v.device != x.device or not v.is_contiguous()
             or v.numel() != blocked.n_blocks * blocked.eb):
@@ -674,9 +672,24 @@ def _sm_count(device: torch.device) -> int:
     return n
 
 
+def _width_multiple(blocked: BlockedCOO) -> int:
+    """The widths the layout's kernel takes are multiples of this: 8 (16 B
+    of f32 or bf16 a lane), 32 for the int8 kernels."""
+    return 32 if blocked.int8 else 8
+
+
 def _launch(blocked: BlockedCOO, x: torch.Tensor, target: int | None = None) -> torch.Tensor:
     """A @ X on the card: the layout's CUDA kernel on the current stream.
-    `target` overrides `dedup_target` for the dedup kernel."""
+    `target` overrides `dedup_target` for the dedup kernel. A width the
+    kernel does not take (AutoCF's [n, 1] operands) is padded with zero
+    columns up to the next multiple it takes, and the product sliced back:
+    the kernel still runs (`PADDED` counts these calls)."""
+    m = _width_multiple(blocked)
+    if x.dim() == 2 and x.shape[1] % m:
+        d = x.shape[1]
+        PADDED["calls"] += 1
+        wide = torch.nn.functional.pad(x, (0, m - d % m))
+        return _launch(blocked, wide, target)[:, :d].contiguous()
     _check_call(blocked, x)
     ptrs = _structure(blocked, x.device)
     lib = _library()

@@ -25,8 +25,10 @@ sync raises: there is no eager fallback.
 
 Two hooks of the JAX trainer: a bundle's `update_extras` runs inside the
 step (and its graph) before the loss, from the parameters before the
-update (BUIR's EMA targets), and its `epoch_setup` runs eagerly at the
-start of each epoch (NCL's k-means); both write the extras buffers in
+update (BUIR's EMA targets; AutoCF's masked subgraphs, drawn from the card
+generator the loss draws from, in the graph of the branch that refreshes
+them), and its `epoch_setup` runs eagerly at the start of each epoch
+(NCL's k-means, SGL's augmented views); both write the extras buffers in
 place.
 
 Parity points:
@@ -229,7 +231,8 @@ class Trainer:
         written into their buffers before the loss reads them."""
         if self.bundle.update_extras is not None:
             with torch.no_grad():
-                for k, v in self.bundle.update_extras(self.extras, batch).items():
+                for k, v in self.bundle.update_extras(self.extras, batch,
+                                                      self.drop_gen).items():
                     self._store(k, v)
         self.opt.zero_grad(set_to_none=False)
         loss, aux = self.bundle.batch_loss(self.extras, batch, edge_keys, self.drop_gen)

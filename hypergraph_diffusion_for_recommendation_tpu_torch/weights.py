@@ -17,7 +17,8 @@ LeCun truncated-normal Dense kernels, zero biases, unit LayerNorm scales)
 from a `torch.Generator`, for runs on a machine without JAX.
 
 The HD family's modules and the zoo's (LightGCN, MF, HCCF, HGCN, SHT,
-the SSL family) name their parameters and submodules after flax's, so
+the SSL family, SGL, DHCF, DHCF_diffusion, HCCF_diffusion, KGIN, KGCL,
+AutoCF and LRMRec) name their parameters and submodules after flax's, so
 `params_from_jax` maps any of their flax trees (parameters or gradients)
 by path: `a/b/kernel` -> `a.b.weight` transposed (an attention
 `DenseGeneral` kernel flattened to 2-D first), `a/b/scale` -> `a.b.weight`,
@@ -193,6 +194,10 @@ def params_from_jax(params_np: dict, device: torch.device | str | None = None
     flax path -> that module's state dict on `device` (the GPU unless the
     caller asks for the CPU). It covers the HD family and every model of
     the zoo: LightGCN, MF, HCCF, HGCN (its `TransformerEncoderLayer_k`
-    blocks and their two-head attention kernels), SHT and the SSL family
-    (the BUIR and SelfCF `predictor`, the SSL4Rec towers)."""
+    blocks and their two-head attention kernels), SHT, the SSL family (the
+    BUIR and SelfCF `predictor`, the SSL4Rec towers), and the other
+    adjacency forms (the ED-HNN wrappers `EquivSetGNNScatter_k` and
+    `DenseEquivSetGNN_0`, AutoCF's `gt_layers_0`, LRMRec's `mask_token` and
+    its `recon_mlp` `nn.Sequential`, whose Dense layers are `layers_0` and
+    `layers_2`)."""
     return _flax_tree_to_torch(params_np, "", resolve_device(device))

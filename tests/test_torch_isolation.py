@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing it (and serving and training
-KHGRec, HGNN_HD3, LightGCN and BUIR on the CPU) pulls in neither JAX,
-flax, optax, nor the JAX package."""
+KHGRec, HGNN_HD3, LightGCN, BUIR, SGL, AutoCF, LRMRec and KGIN on the CPU)
+pulls in neither JAX, flax, optax, nor the JAX package."""
 
 import subprocess
 import sys
@@ -18,7 +18,8 @@ from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import (
 from hypergraph_diffusion_for_recommendation_tpu_torch.ops import dropout, losses, sampling
 from hypergraph_diffusion_for_recommendation_tpu_torch.train import optim, trainer
 from hypergraph_diffusion_for_recommendation_tpu_torch.models import (
-    hccf, hd_family, hgcn, khgrec, layers, lightgcn, mf, sht, ssl_family)
+    autocf, dhcf, dhcf_diffusion, hccf, hccf_diffusion, hd_family, hgcn, kgin_kgcl, khgrec,
+    layers, lightgcn, mf, sgl, sht, ssl_family)
 from hypergraph_diffusion_for_recommendation_tpu_torch.bench import gather_fusion as probe, timing
 {extra}
 bad = sorted(m for m in sys.modules
@@ -81,6 +82,24 @@ assert set(rec.extras) == {'target_u', 'target_i'}
 """
 
 
+# the other adjacency forms: SGL (epoch_setup's views), AutoCF and LRMRec (the
+# refresh and keep branches, the profiles' stand-in) and KGIN (the KG) for one epoch
+_RUN_ADJACENCY = """
+from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+from hypergraph_diffusion_for_recommendation_tpu_torch.data import synthetic_dataset
+from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender
+data = synthetic_dataset(n_users=60, n_items=80, mean_degree=10.0, seed=1, with_kg=True)
+for name in ('SGL', 'AutoCF', 'LRMRec', 'KGIN'):
+    rec = Recommender(make_config(name, embedding_size=16, batch_size=64, eval_user_batch=64,
+                                  item_ranking=(10, 20), max_epoch=1), device='cpu')
+    rec.build(data)
+    assert set(rec.execute()) == {10, 20}
+    assert (rec.bundle.kg is not None) == (name == 'KGIN')
+    if name in ('AutoCF', 'LRMRec'):
+        assert rec.extras['step'] == rec.trainer.n_batches
+"""
+
+
 def _probe(extra: str = ""):
     return subprocess.run([sys.executable, "-c", _PROBE.format(extra=extra)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -106,6 +125,12 @@ def test_hd_training_runs_without_jax():
 
 def test_zoo_training_runs_without_jax():
     proc = _probe(_RUN_ZOO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_adjacency_forms_training_runs_without_jax():
+    proc = _probe(_RUN_ADJACENCY)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
 

@@ -174,8 +174,16 @@ def test_cuda_wrapper_checks_its_input(cuda):
         tsp.blocked_spmm(tb, torch.zeros(shape[1] + 1, 128, device=cuda))
     with pytest.raises(ValueError, match="int32"):
         tsp.blocked_spmm(tb.replace(cols=tb.cols.long()), torch.zeros(shape[1], 128, device=cuda))
-    with pytest.raises(ValueError, match="d % 32"):
-        tsp.blocked_spmm(tb.replace(int8=True), torch.zeros(shape[1], 24, device=cuda))
+    # a width the kernel does not take is padded with zero columns, not refused
+    # (the int8 kernels take d % 32 == 0): the kernel runs on d 32, sliced to 24
+    x = torch.randn(shape[1], 24, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    padded, launches = tsp.PADDED["calls"], tsp.LAUNCHES["segment_spmm_rows_int8"]
+    got = tsp.blocked_spmm(tb.replace(int8=True), x)
+    torch.cuda.synchronize()
+    assert got.shape == (shape[0], 24) and got.is_contiguous()
+    assert tsp.PADDED["calls"] == padded + 1
+    assert tsp.LAUNCHES["segment_spmm_rows_int8"] == launches + 1
+    assert torch.equal(got, tsp.blocked_spmm_reference(tb.replace(int8=True), x))
 
 
 @pytest.mark.gpu
@@ -369,3 +377,103 @@ def test_hd_forward_and_backward_launch_on_b_hyper(cuda):
     for gk, gp in zip(grads_k, grads_p):
         assert gk is not None and gp is not None
         torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-4 * float(gp.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gather_layout", ["base", "dedup"])
+@pytest.mark.parametrize("d", [1, 5])
+def test_narrow_operand_runs_the_kernel_padded(cuda, gather_layout, d):
+    # AutoCF's [n, 1] operands: the wrapper pads X to width 8, launches the
+    # same kernel, and slices; the backward of spmm_pair pads its [m, d]
+    # gradient likewise. Both equal the plain version on the narrow X.
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data.device import make_adj_pair
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.sparse import spmm_pair
+
+    shape, rows, cols, vals = _hub_graph()
+    live = rows < shape[0]
+    pair = make_adj_pair(rows[live], cols[live], vals[live], shape, cuda,
+                         gather_layout=gather_layout)
+    name = "segment_spmm_dedup" if gather_layout == "dedup" else "segment_spmm_rows"
+    gen = torch.Generator(cuda).manual_seed(4)
+    x = torch.randn(shape[1], d, device=cuda, generator=gen, requires_grad=True)
+    w = torch.randn(shape[0], d, device=cuda, generator=gen)
+    before, padded = tsp.LAUNCHES[name], tsp.PADDED["calls"]
+    y = spmm_pair(pair.fwd, pair.bwd, x)
+    (y * w).sum().backward()
+    torch.cuda.synchronize()
+    assert tsp.LAUNCHES[name] == before + 2 and tsp.PADDED["calls"] == padded + 2
+    assert y.shape == (shape[0], d) and x.grad.shape == (shape[1], d)
+    want = tsp.blocked_spmm_reference(pair.fwd.blocked, x.detach())
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    want_dx = tsp.blocked_spmm_reference(pair.bwd.blocked, w)
+    torch.testing.assert_close(x.grad, want_dx, rtol=1e-5,
+                               atol=1e-5 * float(want_dx.abs().max()))
+
+
+@pytest.mark.gpu
+def test_autocf_refresh_and_keep_graphs_replay_their_eager_steps(cuda):
+    # AutoCF's two step graphs on the card: the refresh branch draws its
+    # subgraphs from the trainer's generator inside its graph (width-1
+    # products included); 12 replayed steps equal 12 eager steps bit for bit
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data import (
+        build_cf_device_data,
+        build_interaction,
+        synthetic_dataset,
+    )
+    from hypergraph_diffusion_for_recommendation_tpu_torch.models import build_model
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Trainer
+
+    train, test, _ = synthetic_dataset(n_users=300, n_items=500, mean_degree=12.0, seed=2)
+    cf = build_cf_device_data(build_interaction(train, test), cuda, needs={"adj", "raw_adj"})
+    bundle = build_model(make_config("AutoCF", embedding_size=32, batch_size=256), cf)
+    runs = []
+    for graphs in (None, False):
+        tr = Trainer(bundle, seed=0, graphs=graphs)
+        batches = tr.sample_epoch()
+        losses = [tr.train_step(tuple(t[s % batches[0].shape[0]] for t in batches), ())[0]
+                  .clone() for s in range(12)]
+        torch.cuda.synchronize()
+        runs.append((torch.stack(losses), {k: v.detach().clone() for k, v in
+                                           bundle.module.state_dict().items()},
+                     {k: v for k, v in tr.extras.items()}))
+        if graphs is None:
+            assert sorted(tr._step_graphs) == ["keep", "refresh"]
+    (lg, pg, eg), (le, pe, ee) = runs
+    assert torch.isfinite(lg).all() and torch.equal(lg, le)
+    assert all(torch.equal(pg[k], pe[k]) for k in pg)
+    assert eg["step"] == ee["step"] == 12
+    assert all(torch.equal(eg[k], ee[k]) for k in eg if k != "step")
+
+
+@pytest.mark.gpu
+def test_hub_safe_sum_matches_and_repeats_on_the_card(cuda):
+    # AutoCF's decoder sums: one id repeated 200,000 times among others. The
+    # two-level fixed-order sum repeats bit for bit and is at least as close
+    # to the f64 sum as the plain fixed-order sum, which adds the 200,000
+    # terms one after another (its f32 error grows with the run); so is the
+    # gather's backward
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops import sparse
+
+    gen = torch.Generator(cuda).manual_seed(6)
+    n = 5000
+    ids = torch.cat([torch.randint(0, n, (100_000,), device=cuda, generator=gen),
+                     torch.full((200_000,), 17, device=cuda)])
+    ids = ids[torch.randperm(ids.shape[0], device=cuda, generator=gen)]
+    values = torch.randn(ids.shape[0], 64, device=cuda, generator=gen)
+    exact = torch.zeros(n, 64, dtype=torch.float64, device=cuda).index_add_(0, ids,
+                                                                             values.double())
+    scale = float(exact.abs().max())
+
+    def err(t):
+        return float((t.double() - exact).abs().max()) / scale
+
+    got = sparse.scatter_sum_hubs(values, ids, n)
+    assert torch.equal(got, sparse.scatter_sum_hubs(values, ids, n))
+    assert err(got) <= max(err(sparse.scatter_sum(values, ids, n)), 1e-6) and err(got) <= 1e-5
+    x = torch.randn(n, 64, device=cuda, generator=gen, requires_grad=True)
+    grads = []
+    for _ in range(2):
+        (g,) = torch.autograd.grad((sparse.gather_rows_hubs(x, ids) * values).sum(), x)
+        grads.append(g)
+    assert torch.equal(grads[0], grads[1]) and err(grads[0]) <= 1e-5
