@@ -10,6 +10,7 @@ from .device import (
     make_adj_pair,
 )
 from .knowledge import KnowledgeData, build_knowledge
+from .social import SocialData, build_social, synthetic_social
 from .synthetic import synthetic_dataset
 
 __all__ = [
@@ -25,5 +26,8 @@ __all__ = [
     "make_adj_pair",
     "KnowledgeData",
     "build_knowledge",
+    "SocialData",
+    "build_social",
+    "synthetic_social",
     "synthetic_dataset",
 ]

@@ -9,12 +9,15 @@ from . import (  # noqa: F401
     hccf_diffusion,
     hd_family,
     hgcn,
+    kgat,
     kgin_kgcl,
     khgrec,
+    ktup_ripplenet,
     lightgcn,
     mf,
     sgl,
     sht,
+    social_models,
     ssl_family,
 )
 

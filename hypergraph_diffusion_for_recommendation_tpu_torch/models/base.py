@@ -12,14 +12,16 @@ Registered so far: the KHGRec family (KHGRec, HGNN, HD2, HGNNAblation),
 the HD family, the models that read only the CF adjacency (LightGCN,
 MF, HCCF, HGCN, SHT and the SSL family: DirectAU, SimGCL, XSimGCL, NCL,
 MixGCF, SSL4Rec, BUIR, SelfCF), and those of the other adjacency forms
-(SGL, DHCF, DHCF_diffusion, HCCF_diffusion, KGIN, KGCL, AutoCF, LRMRec);
-the rest of the zoo comes with later slices of the port.
+(SGL, DHCF, DHCF_diffusion, HCCF_diffusion, KGIN, KGCL, AutoCF, LRMRec),
+the KG recommenders (KGAT with its alternating epoch, KTUP, HKGRippleNet)
+and the social models (MHCN, SEPT, which take `social`); the sequential
+models come with a later slice of the port.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 from torch import nn
@@ -76,6 +78,19 @@ class ModelBundle:
     # each epoch, outside the graphs (NCL's k-means centroids); the trainer
     # copies them into the extras buffers in place, which the graphs read
     epoch_setup: Optional[Callable[[Extras, torch.Generator], Extras]] = None
+    # KGAT-style alternating optimisation (KGAT.py:66-125): the epoch runs a
+    # CF phase (`batch_loss`, the CF optimiser) over the CF batches, then a KG
+    # phase (`kg_batch_loss`, a second optimiser over the same parameters)
+    # over KG batches drawn on their own; `epoch_update_extras` runs after both
+    alternating: bool = False
+    # (extras, kg_batch, edge_keys, generator=None) -> (loss, aux): the KG
+    # phase's loss of one (h, r, pos_t, neg_t) batch
+    kg_batch_loss: Optional[Callable[..., tuple[torch.Tensor, dict]]] = None
+    # (extras, generator) -> new extras tensors, run eagerly after the epoch's
+    # steps and before its evaluation (KGAT's attention refresh from the full
+    # triple list, KGAT.py:128-133); the trainer copies them into the extras
+    # buffers in place, which the graphs read
+    epoch_update_extras: Optional[Callable[[Extras, torch.Generator], Extras]] = None
 
 
 def flax_init(module: nn.Module) -> Callable[[torch.Generator], Extras]:
@@ -106,6 +121,8 @@ def register_model(name: str):
 # builders consume (the JAX package's table, cut to the ported modules)
 _MODULE_DATA_NEEDS = {
     "mf": frozenset(),
+    "kgat": frozenset(),
+    "ktup_ripplenet": frozenset(),
     "lightgcn": frozenset({"adj"}),
     "hccf": frozenset({"adj"}),
     "hccf_diffusion": frozenset({"adj"}),
@@ -119,6 +136,7 @@ _MODULE_DATA_NEEDS = {
     "kgin_kgcl": frozenset({"adj", "int_norm"}),
     "autocf": frozenset({"adj", "raw_adj"}),
     "sgl": frozenset({"adj", "raw_adj", "raw_int"}),
+    "social_models": frozenset({"adj", "inv_int_norm"}),
 }
 
 
@@ -131,7 +149,15 @@ def model_data_needs(name: str):
     return _MODULE_DATA_NEEDS.get(mod)
 
 
-def build_model(cfg: Config, cf: CFDeviceData, kg: Optional[KGDeviceData] = None) -> ModelBundle:
+def build_model(cfg: Config, cf: CFDeviceData, kg: Optional[KGDeviceData] = None,
+                social: Any = None) -> ModelBundle:
+    """`social` (a `data.social.SocialData`) goes to the model functions
+    that take it (MHCN, SEPT)."""
     if cfg.model not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model {cfg.model!r}. Registered: {sorted(MODEL_REGISTRY)}")
-    return MODEL_REGISTRY[cfg.model](cfg, cf, kg)
+    import inspect
+
+    fn = MODEL_REGISTRY[cfg.model]
+    if "social" in inspect.signature(fn).parameters:
+        return fn(cfg, cf, kg, social=social)
+    return fn(cfg, cf, kg)

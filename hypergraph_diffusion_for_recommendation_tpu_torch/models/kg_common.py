@@ -23,8 +23,15 @@ def project_by_relation(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor) -> to
 
 
 def relation_lookup(rel_emb: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """rel_emb[r]."""
-    return rel_emb[r.long()]
+    """rel_emb[r] as a one-hot matmul (R ~ 10 relations), the JAX package's
+    form: its values are rel_emb's rows exactly, and its backward is one
+    matmul into the relation table. A KG batch of 8192 triples holds runs of
+    thousands of one relation id, which the index backward would add one
+    element after another: KGAT's whole KG step took 2.28 ms with plain
+    indexing, 1.03 with `gather_rows_hubs` and 0.62 in this form (NVIDIA
+    H100 80GB HBM3, 700 W; `chip_smoke.py` phase 17)."""
+    onehot = torch.nn.functional.one_hot(r.long(), rel_emb.shape[0]).to(rel_emb.dtype)
+    return onehot @ rel_emb
 
 
 def attention_values(

@@ -1,8 +1,8 @@
 """Training losses — the port of the JAX package's `ops/losses.py` (the
 ones the ported models train with), keeping the reference's quirks
 (util/loss_torch.py): `bpr_loss` adds 1e-5 inside the log (:5-9) and
-`l2_reg_loss` sums UN-squared L2 norms (:17-21). Only the TransR KG loss
-uses `log_sigmoid` (models/khgrec.py).
+`l2_reg_loss` sums UN-squared L2 norms (:17-21). Only the TransR KG losses
+use `log_sigmoid` (models/khgrec.py, models/kgat.py).
 """
 
 from __future__ import annotations
@@ -24,6 +24,12 @@ def l2_reg_loss(reg: float, *embs: torch.Tensor) -> torch.Tensor:
     for e in embs:
         total = total + torch.sqrt(torch.sum(torch.square(e)) + 1e-24)
     return reg * total
+
+
+def l2_loss_mean(x: torch.Tensor) -> torch.Tensor:
+    """TransR regulariser: the mean of each row's sum of squares over 2
+    (util/loss_torch.py:112-113)."""
+    return torch.mean(torch.sum(torch.square(x), dim=1) / 2.0)
 
 
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

@@ -24,9 +24,12 @@ from ..core.device import resolve_device
 
 
 class Recommender:
-    def __init__(self, cfg: Config, device: torch.device | str | None = None):
+    def __init__(self, cfg: Config, device: torch.device | str | None = None, social=None):
+        """`social`: a `data.social.SocialData` for the social models (MHCN,
+        SEPT); without it `build` gives them a synthetic trust network."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.social = social
         self.bundle = None
         self.extras = None
         self.trainer = None
@@ -40,15 +43,20 @@ class Recommender:
         knowledge data), their device graphs and the model. `data` is a
         (train, test, kg_df) triple, kg_df None or ignored for a model
         without knowledge; None resolves the configured dataset (only
-        `synthetic` so far)."""
+        `synthetic` so far). A social model given no social data gets the
+        synthetic trust network of `synthetic_social(inter, n_per_user=5)`."""
+        import inspect
+
         from ..data import (
             build_cf_device_data,
             build_interaction,
             build_kg_device_data,
             build_knowledge,
+            build_social,
             synthetic_dataset,
+            synthetic_social,
         )
-        from ..models import build_model, model_data_needs
+        from ..models import MODEL_REGISTRY, build_model, model_data_needs
 
         cfg = self.cfg
         if data is None:
@@ -72,7 +80,11 @@ class Recommender:
         if cfg.use_knowledge and kg_df is not None:
             self.kg = build_knowledge(kg_df, self.inter)
             kg_dev = build_kg_device_data(self.kg, self.device, **layout)
-        self.bundle = build_model(cfg, self.cf_dev, kg_dev)
+        social = self.social
+        make = MODEL_REGISTRY.get(cfg.model)
+        if social is None and make and "social" in inspect.signature(make).parameters:
+            social = build_social(synthetic_social(self.inter, n_per_user=5), self.inter)
+        self.bundle = build_model(cfg, self.cf_dev, kg_dev, social=social)
         self._encoder = None
 
     def init_weights(self, seed: int) -> None:

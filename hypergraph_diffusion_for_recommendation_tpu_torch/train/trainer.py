@@ -1,5 +1,5 @@
 """Generic trainer — the port of the JAX package's `train/trainer.py`,
-the pairwise, non-alternating, single-device subset.
+the pairwise single-device subset, KGAT's alternating epoch included.
 
 The lifecycle (reference base/recommender.py:80-114):
   Trainer.fit() -> per epoch [run_epoch -> evaluate -> plateau.step ->
@@ -29,7 +29,18 @@ update (BUIR's EMA targets; AutoCF's masked subgraphs, drawn from the card
 generator the loss draws from, in the graph of the branch that refreshes
 them), and its `epoch_setup` runs eagerly at the start of each epoch
 (NCL's k-means, SGL's augmented views); both write the extras buffers in
-place.
+place. A bundle's `epoch_update_extras` runs eagerly after the epoch's
+steps and before its evaluation (KGAT's attention refresh).
+
+The alternating epoch (a bundle with `alternating`, KGAT; the JAX
+trainer's `_build_alternating_epoch_fn`): a CF phase over the epoch's CF
+batches with `batch_loss` and the CF optimiser, then a KG phase over
+`n_kg_train // batch_size_kg + 1` KG batches drawn on their own, with
+`kg_batch_loss` and a second optimiser over the same parameters (its own
+Adam state, its own plateau schedule stepped on the KG phase's mean). Each
+phase has its own step graphs, fixed input buffers, aux names and on-card
+sums; every graph shares the trainer's memory pool. The epoch's loss is
+cf_loss + kg_loss, each the mean of its phase's losses.
 
 Parity points:
   * best-model vote: at K = max(topN), count the metrics that worsened
@@ -51,7 +62,7 @@ dropout and the losses' other draws come from (passed to `batch_loss`;
 each step graph draws from it at replay; `epoch_setup` draws from it
 eagerly). A model with cached propagation keeps its step counter as
 a host integer in the extras, so no step waits on the card to pick its
-branch. Meshes, checkpoints and the alternating KGAT path wait.
+branch. Meshes and checkpoints wait.
 """
 
 from __future__ import annotations
@@ -95,6 +106,26 @@ class FitResult:
     history: list[EpochRecord] = field(default_factory=list)
     final_metrics: dict | None = None
     examples_per_sec: float = 0.0
+
+
+@dataclass
+class _Phase:
+    """One loss's step state (the CF phase; the KG phase of an alternating
+    epoch): its optimiser, the step graphs' fixed (batch, keys) inputs and
+    their loss and aux terms (outside the graphs' pool), the aux names of
+    its first step, and the loss and aux terms summed on the card since the
+    phase began."""
+
+    opt: torch.optim.Optimizer
+    inputs: Optional[tuple] = None
+    stats: Optional[torch.Tensor] = None
+    aux_names: Optional[list] = None
+    sums: Optional[torch.Tensor] = None
+
+
+def _graph_key(phase: str, branch: str) -> str:
+    """The step graph's name: the loss's code path, prefixed in the KG phase."""
+    return branch if phase == "cf" else f"{phase}:{branch}"
 
 
 def clip_grads_(grads: list[torch.Tensor], max_norm: float) -> None:
@@ -142,6 +173,14 @@ class Trainer:
                 p.grad = torch.zeros_like(p)
         self.opt = make_optimizer(self._params, cfg.lrate, cfg.weight_decay)
         self.plateau = PlateauState(lr=cfg.lrate, factor=cfg.lr_decay, patience=cfg.lr_patience)
+        self._phases = {"cf": _Phase(self.opt)}
+        if bundle.alternating:
+            # KGAT: two Adam instances over the same parameters (KGAT.py:66-67)
+            self.kg_opt = make_optimizer(self._params, cfg.lrate, cfg.weight_decay)
+            self.kg_plateau = PlateauState(lr=cfg.lrate, factor=cfg.lr_decay,
+                                           patience=cfg.lr_patience)
+            self._phases["kg"] = _Phase(self.kg_opt)
+            self.n_kg_batches = bundle.kg.n_kg_train // cfg.batch_size_kg + 1
         self.n_batches = -(-bundle.cf.n_train // cfg.batch_size)
         if cfg.sampler not in ("redraw", "exact"):
             raise ValueError(f"sampler {cfg.sampler!r} is not 'redraw' or 'exact'")
@@ -152,15 +191,11 @@ class Trainer:
         self._encoded = None
         # graph mode: one memory pool for every graph of this trainer
         self._pool = torch.cuda.graph_pool_handle() if graphs else None
-        self._step_graphs = {}  # code path -> (graph, host-value steps)
-        self._stats = None  # the step graphs' loss and aux terms, outside their pool
+        # code path (a KG phase's prefixed "kg:") -> (graph, host-value steps)
+        self._step_graphs = {}
         self._eager_steps = {}  # code path -> eager steps taken
-        self._inputs = None  # the step graphs' fixed (batch, keys) buffers
         self._encode_graph = None
         self._frozen = False  # a graph reads the extras buffers: they stay where they are
-        # the loss and aux terms, summed on the card since the epoch began
-        self._aux_names = None
-        self._sums = None
 
     # -- batches ---------------------------------------------------------
     def _make_exact_sampler(self) -> HostExactSampler:
@@ -179,25 +214,38 @@ class Trainer:
 
     def sample_epoch(self) -> tuple[torch.Tensor, ...]:
         """One epoch of batches on the card: (users, pos, neg) and, for a
-        KG model, (h, r, pos_t, neg_t), each [n_batches, B] int32."""
+        KG model that is not alternating, (h, r, pos_t, neg_t), each
+        [n_batches, B] int32 (an alternating model's KG batches come from
+        `sample_kg_epoch`)."""
         b, cfg = self.bundle, self.cfg
         cf = b.cf
+        joint = b.uses_kg and not b.alternating
         if self._exact is not None:
-            users, pos, neg = self._exact.pairwise(self._host_seed(), cfg.batch_size)
-            host = [users, pos, neg]
-            if b.uses_kg:
-                host += self._exact.kg_batches(self._host_seed(), users.shape[0],
-                                               cfg.batch_size_kg)
-            return tuple(torch.as_tensor(a, device=self.device) for a in host)
-        batches = epoch_pairwise_batches(
-            self.dev_gen, cf.edge_u, cf.edge_i, cf.sample_membership, cf.n_items,
-            cfg.batch_size, cfg.neg_resample_rounds)
-        if b.uses_kg:
-            kg, n = b.kg, b.kg.n_kg_train
-            batches += epoch_kg_batches(
-                self.dev_gen, kg.att_h[:n], kg.att_r[:n], kg.att_t[:n], kg.head_tails,
-                kg.n_entities, batches[0].shape[0], cfg.batch_size_kg, cfg.neg_resample_rounds)
+            host = self._exact.pairwise(self._host_seed(), cfg.batch_size)
+            batches = tuple(torch.as_tensor(a, device=self.device) for a in host)
+        else:
+            batches = epoch_pairwise_batches(
+                self.dev_gen, cf.edge_u, cf.edge_i, cf.sample_membership, cf.n_items,
+                cfg.batch_size, cfg.neg_resample_rounds)
+        if joint:
+            batches += self._kg_batches(batches[0].shape[0])
         return batches
+
+    def _kg_batches(self, n_batches: int) -> tuple[torch.Tensor, ...]:
+        """`n_batches` KG batches on the card (the exact sampler's on the host)."""
+        cfg, kg = self.cfg, self.bundle.kg
+        if self._exact is not None:
+            host = self._exact.kg_batches(self._host_seed(), n_batches, cfg.batch_size_kg)
+            return tuple(torch.as_tensor(a, device=self.device) for a in host)
+        n = kg.n_kg_train
+        return epoch_kg_batches(
+            self.dev_gen, kg.att_h[:n], kg.att_r[:n], kg.att_t[:n], kg.head_tails,
+            kg.n_entities, n_batches, cfg.batch_size_kg, cfg.neg_resample_rounds)
+
+    def sample_kg_epoch(self) -> tuple[torch.Tensor, ...]:
+        """An alternating epoch's KG batches on the card, drawn on their own:
+        (h, r, pos_t, neg_t), each [n_kg_batches, B_kg] int32."""
+        return self._kg_batches(self.n_kg_batches)
 
     def edge_keys(self) -> tuple[tuple[int, int], ...]:
         """Fresh dropout key words, one pair per adjacency the model drops."""
@@ -221,124 +269,154 @@ class Trainer:
         else:
             self.extras[name] = value.detach().clone()
 
-    def _step_body(self, batch, edge_keys) -> tuple[torch.Tensor, dict]:
+    def _step_body(self, batch, edge_keys, phase: str = "cf") -> tuple[torch.Tensor, dict]:
         """The training step as a step graph holds it: zero_grad, loss,
-        backward, clip, Adam, the new extras tensors written into their
-        buffers, the loss and aux terms added to the epoch's sums. Returns
-        (stats: the loss then the aux terms in `_aux_names` order, the
-        new host values of the extras). A bundle's `update_extras` runs
-        first, from the parameters before the step, and its tensors are
-        written into their buffers before the loss reads them."""
-        if self.bundle.update_extras is not None:
+        backward, clip, the phase's Adam, the new extras tensors written into
+        their buffers, the loss and aux terms added to the phase's sums.
+        Returns (stats: the loss then the aux terms in the phase's
+        `aux_names` order, the new host values of the extras). In the CF
+        phase a bundle's `update_extras` runs first, from the parameters
+        before the step, and its tensors are written into their buffers
+        before the loss reads them; the KG phase runs `kg_batch_loss`."""
+        b, ph = self.bundle, self._phases[phase]
+        if phase == "cf" and b.update_extras is not None:
             with torch.no_grad():
-                for k, v in self.bundle.update_extras(self.extras, batch,
-                                                      self.drop_gen).items():
+                for k, v in b.update_extras(self.extras, batch, self.drop_gen).items():
                     self._store(k, v)
-        self.opt.zero_grad(set_to_none=False)
-        loss, aux = self.bundle.batch_loss(self.extras, batch, edge_keys, self.drop_gen)
+        ph.opt.zero_grad(set_to_none=False)
+        loss_fn = b.batch_loss if phase == "cf" else b.kg_batch_loss
+        loss, aux = loss_fn(self.extras, batch, edge_keys, self.drop_gen)
         loss.backward()
-        if self.bundle.grad_clip_norm is not None:
-            clip_grads_([p.grad for p in self._params], self.bundle.grad_clip_norm)
-        self.opt.step()
+        if b.grad_clip_norm is not None:
+            clip_grads_([p.grad for p in self._params], b.grad_clip_norm)
+        ph.opt.step()
         host = {}
         for k, v in (aux.pop("_new_extras", None) or {}).items():
             if torch.is_tensor(v):
                 self._store(k, v)
             else:
                 host[k] = v
-        if self._aux_names is None:
-            self._aux_names = sorted(aux)
-        elif sorted(aux) != self._aux_names:
-            raise ValueError(f"{self.bundle.name}: a step's aux terms {sorted(aux)} differ from "
-                             f"the first step's {self._aux_names}")
-        stats = torch.stack([loss.detach()] + [aux[k] for k in self._aux_names])
-        if self._sums is None:
-            self._sums = torch.zeros_like(stats)
-        self._sums += stats
+        if ph.aux_names is None:
+            ph.aux_names = sorted(aux)
+        elif sorted(aux) != ph.aux_names:
+            raise ValueError(f"{b.name}: a {phase} step's aux terms {sorted(aux)} differ from "
+                             f"the first step's {ph.aux_names}")
+        stats = torch.stack([loss.detach()] + [aux[k] for k in ph.aux_names])
+        if ph.sums is None:
+            ph.sums = torch.zeros_like(stats)
+        ph.sums += stats
         return stats, host
 
-    def _replay(self, branch: str, batch, edge_keys) -> torch.Tensor:
-        """The step as a replay of `branch`'s graph, captured at its first
-        use, with the batch and keys copied into the graphs' fixed inputs."""
+    def _replay(self, phase: str, branch: str, batch, edge_keys) -> torch.Tensor:
+        """The step as a replay of the graph of `branch` of `phase`, captured
+        at its first use, with the batch and keys copied into the phase's
+        fixed inputs."""
+        ph = self._phases[phase]
         keys = (edge_keys if torch.is_tensor(edge_keys)
                 else torch.tensor(edge_keys, dtype=torch.int64).reshape(-1, 2))
-        if self._inputs is None:
-            self._inputs = (tuple(torch.empty_like(t) for t in batch),
-                            torch.empty(keys.shape, dtype=torch.int64, device=self.device))
-        in_batch, in_keys = self._inputs
+        if ph.inputs is None:
+            ph.inputs = (tuple(torch.empty_like(t) for t in batch),
+                         torch.empty(keys.shape, dtype=torch.int64, device=self.device))
+        in_batch, in_keys = ph.inputs
         for buf, t in zip(in_batch, batch):
             buf.copy_(t)
         in_keys.copy_(keys)
-        if branch not in self._step_graphs:
+        key = _graph_key(phase, branch)
+        if key not in self._step_graphs:
             before = dict(self.extras)
             self._frozen = True
-            if self._stats is None:
-                self._stats = torch.empty(1 + len(self._aux_names), device=self.device)
+            if ph.stats is None:
+                ph.stats = torch.empty(1 + len(ph.aux_names), device=self.device)
 
             def step():
-                stats, host = self._step_body(in_batch, in_keys)
-                self._stats.copy_(stats)
+                stats, host = self._step_body(in_batch, in_keys, phase)
+                ph.stats.copy_(stats)
                 return host
 
             graph, host = capture(step, self._pool, (self.drop_gen,))
             # a host value's change in one step (cached propagation's age: +1)
-            self._step_graphs[branch] = (graph, {k: v - before[k] for k, v in host.items()})
-        graph, host_steps = self._step_graphs[branch]
+            self._step_graphs[key] = (graph, {k: v - before[k] for k, v in host.items()})
+        graph, host_steps = self._step_graphs[key]
         graph.replay()
         for k, d in host_steps.items():
             self.extras[k] += d
-        return self._stats
+        return ph.stats
 
-    def train_step(self, batch, edge_keys) -> tuple[torch.Tensor, dict]:
-        """One optimiser step on one batch; returns the (detached) loss and
-        aux terms, still on the card (in graph mode views of one buffer,
-        which the next step writes again). `edge_keys`:
-        one pair of dropout key words per dropped adjacency, as integers
-        or as an int64 tensor [n_edge_keys, 2]. In graph mode each code
-        path of the loss runs `GRAPH_WARMUP_STEPS` eager steps, then is
-        captured, then replayed."""
+    def train_step(self, batch, edge_keys, phase: str = "cf") -> tuple[torch.Tensor, dict]:
+        """One optimiser step on one batch of `phase` ("cf"; an alternating
+        model's "kg" steps its KG loss with its KG optimiser); returns the
+        (detached) loss and aux terms, still on the card (in graph mode views
+        of one buffer, which the phase's next step writes again).
+        `edge_keys`: one pair of dropout key words per dropped adjacency, as
+        integers or as an int64 tensor [n_edge_keys, 2]. In graph mode each
+        code path of each phase runs `GRAPH_WARMUP_STEPS` eager steps, then
+        is captured, then replayed."""
         b = self.bundle
+        if phase not in self._phases:
+            raise ValueError(f"{b.name} has no {phase!r} phase")
         branch = b.step_branch(self.extras) if b.step_branch is not None else "full"
-        eager = self._eager_steps.get(branch, 0)
+        key = _graph_key(phase, branch)
+        eager = self._eager_steps.get(key, 0)
         if not self.graphs or eager < GRAPH_WARMUP_STEPS:
-            self._eager_steps[branch] = eager + 1
-            stats, host = self._step_body(batch, edge_keys)
+            self._eager_steps[key] = eager + 1
+            stats, host = self._step_body(batch, edge_keys, phase)
             self.extras.update(host)
         else:
-            stats = self._replay(branch, batch, edge_keys)
+            stats = self._replay(phase, branch, batch, edge_keys)
         self._version += 1
-        return stats[0], dict(zip(self._aux_names, stats[1:]))
+        return stats[0], dict(zip(self._phases[phase].aux_names, stats[1:]))
 
-    def begin_epoch(self) -> None:
-        """A bundle's `epoch_setup`, run eagerly before the epoch's steps
-        (the JAX epoch runs it before its scan), from the card generator;
-        its tensors are copied into the extras buffers in place, where the
-        step and encode graphs read them."""
-        if self.bundle.epoch_setup is None:
+    def _write_extras(self, hook) -> None:
+        """Run an epoch hook (`epoch_setup`, `epoch_update_extras`) eagerly
+        from the card generator and copy its tensors into the extras
+        buffers in place, where the step and encode graphs read them."""
+        if hook is None:
             return
         with torch.no_grad():
-            for k, v in self.bundle.epoch_setup(self.extras, self.drop_gen).items():
+            for k, v in hook(self.extras, self.drop_gen).items():
                 self._store(k, v)
         self._version += 1
 
-    def run_epoch(self, epoch: int) -> tuple[float, dict]:
-        self.begin_epoch()
-        batches = self.sample_epoch()
+    def begin_epoch(self) -> None:
+        """A bundle's `epoch_setup`, run before the epoch's steps (the JAX
+        epoch runs it before its scan)."""
+        self._write_extras(self.bundle.epoch_setup)
+
+    def end_epoch(self) -> None:
+        """A bundle's `epoch_update_extras`, run after the epoch's steps and
+        before its evaluation (KGAT's attention refresh: the first epoch
+        trains on the zero attention, KGAT.py:128-133)."""
+        self._write_extras(self.bundle.epoch_update_extras)
+
+    def run_phase(self, batches, phase: str = "cf") -> list[float]:
+        """Every step of one phase over `batches` ([n, B] tensors); returns
+        the means of its loss and aux terms over the steps (loss first, then
+        `aux_names` order), copied to the host once."""
         n = batches[0].shape[0]
         keys = self.epoch_keys(n)
-        if self._sums is not None:
-            self._sums.zero_()
+        ph = self._phases[phase]
+        if ph.sums is not None:
+            ph.sums.zero_()
         for s in range(n):
-            self.train_step(tuple(t[s] for t in batches), keys[s])
-        # one copy to the host for the epoch's means
-        means = (self._sums / n).cpu().tolist()
-        loss = means[0]
+            self.train_step(tuple(t[s] for t in batches), keys[s], phase)
+        return (ph.sums / n).cpu().tolist()
+
+    def run_epoch(self, epoch: int) -> tuple[float, dict]:
+        self.begin_epoch()
+        means = self.run_phase(self.sample_epoch())
+        if self.bundle.alternating:
+            kg_means = self.run_phase(self.sample_kg_epoch(), "kg")
+            aux = {"cf_loss": means[0], "kg_loss": kg_means[0]}
+            loss = means[0] + kg_means[0]
+        else:
+            loss = means[0]
+            aux = dict(zip(self._phases["cf"].aux_names, means[1:]))
+        self.end_epoch()
         # NaN guard: the reference checks every batch (KGAT.py:96-97);
         # here a non-finite epoch mean fails the epoch
         if not np.isfinite(loss):
             raise FloatingPointError(
                 f"non-finite train loss ({loss}) at epoch {epoch + 1} for {self.cfg.model}")
-        aux = dict(zip(self._aux_names, means[1:]))
         aux["train_loss"] = loss
         return loss, aux
 
@@ -368,19 +446,22 @@ class Trainer:
 
     def snapshot(self, optimizer: bool = False):
         """Copies of the parameters and the extras; with `optimizer`, also
-        of Adam's state and the generators' states, so that `restore`
-        brings back the whole training state (after at least one step)."""
+        of each phase's Adam state and the generators' states, so that
+        `restore` brings back the whole training state (after at least one
+        step of each phase)."""
         snap = ({k: v.detach().clone() for k, v in self.bundle.module.state_dict().items()},
                 {k: v.clone() if torch.is_tensor(v) else v for k, v in self.extras.items()})
         if optimizer:
-            adam = [{k: v.clone() for k, v in self.opt.state[p].items()} for p in self._params]
+            adam = [[{k: v.clone() for k, v in ph.opt.state[p].items()} for p in self._params]
+                    for ph in self._phases.values()]
             gens = [g.get_state() for g in (self.host_gen, self.dev_gen, self.drop_gen)]
             snap += (adam, gens)
         return snap
 
     def restore(self, snap) -> None:
         """Copy a snapshot back in place: the parameters, the extras
-        buffers and Adam's state keep the addresses the graphs read."""
+        buffers and each phase's Adam state keep the addresses the graphs
+        read."""
         self.bundle.module.load_state_dict(snap[0])
         for k, v in snap[1].items():
             if torch.is_tensor(v):
@@ -388,9 +469,10 @@ class Trainer:
             else:
                 self.extras[k] = v
         if len(snap) > 2:
-            for p, saved in zip(self._params, snap[2]):
-                for k, v in saved.items():
-                    self.opt.state[p][k].copy_(v)
+            for ph, states in zip(self._phases.values(), snap[2]):
+                for p, saved in zip(self._params, states):
+                    for k, v in saved.items():
+                        ph.opt.state[p][k].copy_(v)
             for g, state in zip((self.host_gen, self.dev_gen, self.drop_gen), snap[3]):
                 g.set_state(state)
         self._version += 1
@@ -429,7 +511,15 @@ class Trainer:
                                         for k in best_perf) < 0:
                 best_perf, result.best_epoch = dict(perf), ep + 1
                 best = self.snapshot()
-            if self.bundle.lr_plateau:
+            if not self.bundle.lr_plateau:
+                pass  # the reference trains this model at a fixed rate
+            elif self.bundle.alternating:
+                # a schedule per phase on its own mean loss (KGAT.py:68-69,140-141)
+                self.plateau = self.plateau.step(aux["cf_loss"])
+                self.kg_plateau = self.kg_plateau.step(aux["kg_loss"])
+                set_lr(self.opt, self.plateau.lr)
+                set_lr(self.kg_opt, self.kg_plateau.lr)
+            else:
                 self.plateau = self.plateau.step(loss)
                 set_lr(self.opt, self.plateau.lr)
             eval_t = time.time() - t1

@@ -18,7 +18,8 @@ from a `torch.Generator`, for runs on a machine without JAX.
 
 The HD family's modules and the zoo's (LightGCN, MF, HCCF, HGCN, SHT,
 the SSL family, SGL, DHCF, DHCF_diffusion, HCCF_diffusion, KGIN, KGCL,
-AutoCF and LRMRec) name their parameters and submodules after flax's, so
+AutoCF, LRMRec, KGAT, KTUP, HKGRippleNet, MHCN and SEPT) name their
+parameters and submodules after flax's, so
 `params_from_jax` maps any of their flax trees (parameters or gradients)
 by path: `a/b/kernel` -> `a.b.weight` transposed (an attention
 `DenseGeneral` kernel flattened to 2-D first), `a/b/scale` -> `a.b.weight`,
@@ -78,7 +79,9 @@ def _flax_init(owner: nn.Module, leaf: str, shape: tuple, generator: torch.Gener
 
 def init_flax(module: nn.Module, generator: torch.Generator) -> dict[str, torch.Tensor]:
     """A fresh state dict for a module of flax-initialised parameters (the
-    KHGRec family, LightGCN, MF, HCCF, HGCN, SHT, the SSL family), drawn on
+    KHGRec family and every model of the zoo: Xavier-uniform tables, with
+    the leading axes of KGAT's `trans_M` and RippleNet's `relation_mat` as
+    flax's receptive field), drawn on
     the CPU from `generator` in state-dict order (so a seed gives the same
     weights on every device) and placed on the module's device. The
     attention projections are flax Dense kernels too (LeCun normal over
@@ -199,5 +202,9 @@ def params_from_jax(params_np: dict, device: torch.device | str | None = None
     adjacency forms (the ED-HNN wrappers `EquivSetGNNScatter_k` and
     `DenseEquivSetGNN_0`, AutoCF's `gt_layers_0`, LRMRec's `mask_token` and
     its `recon_mlp` `nn.Sequential`, whose Dense layers are `layers_0` and
-    `layers_2`)."""
+    `layers_2`), the KG recommenders (KGAT's `entity_user_embed`,
+    `relation_embed`, `trans_M` and `aggregators_k` with their `Dense_k` and
+    `LayerNorm_k`; KTUP's five tables; RippleNet's `entity_emb` and
+    `relation_mat`) and the social models (MHCN's `channel_att`, SEPT's
+    tables)."""
     return _flax_tree_to_torch(params_np, "", resolve_device(device))

@@ -42,11 +42,13 @@ def _rec(model, cuda, **kw):
 
 
 def _state(tr):
-    """Every tensor a step writes: parameters, Adam's moments, the extras."""
+    """Every tensor a step writes: parameters, each phase's Adam moments, the
+    extras."""
     out = {f"param {k}": v.detach().clone() for k, v in tr.bundle.module.state_dict().items()}
-    for i, p in enumerate(tr._params):
-        for k in ("exp_avg", "exp_avg_sq"):
-            out[f"{k} {i}"] = tr.opt.state[p][k].clone()
+    for phase, ph in tr._phases.items():
+        for i, p in enumerate(tr._params):
+            for k in ("exp_avg", "exp_avg_sq"):
+                out[f"{phase} {k} {i}"] = ph.opt.state[p][k].clone()
     out.update({f"extras {k}": v.clone() for k, v in tr.extras.items() if torch.is_tensor(v)})
     return out
 
@@ -108,6 +110,124 @@ def test_replayed_encode_equals_eager_bit_for_bit(cuda):
     assert torch.equal(u, ue) and torch.equal(i, ie)
     ru, ri = rec.encode()  # the facade's own encode graph
     assert torch.equal(ru, rec.bundle.encode_eval(rec.extras)[0])
+
+
+def _kgat(cuda):
+    rec = Recommender(make_config("KGAT", embedding_size=32, relation_dim=32,
+                                  conv_dim_list=(32, 16), mess_dropout=(0.1, 0.1), batch_size=256,
+                                  batch_size_kg=512, eval_user_batch=128, item_ranking=(10, 20)),
+                      cuda)
+    rec.build(synthetic_dataset(n_users=300, n_items=500, mean_degree=20.0, seed=3,
+                                with_kg=True))
+    rec.init_weights(0)
+    return rec
+
+
+@pytest.mark.gpu
+def test_kgat_phase_graphs_replay_their_eager_steps(cuda):
+    """KGAT's CF and KG step graphs (each its own optimiser, inputs and
+    aux terms) against eager steps from one full state, both Adam states
+    included: bit for bit."""
+    rec = _kgat(cuda)
+    tg = Trainer(rec.bundle, seed=0, extras=rec.extras)
+    te = Trainer(rec.bundle, seed=0, extras=rec.extras, graphs=False)
+    cf, kg = tg.sample_epoch(), tg.sample_kg_epoch()
+    assert len(cf) == 3 and len(kg) == 4 and kg[0].shape == (tg.n_kg_batches, 512)
+    no_keys = torch.zeros(0, 2, dtype=torch.int64, device=cuda)
+    for s in range(2):  # each phase: an eager step, then its capture
+        tg.train_step(tuple(t[s] for t in cf), no_keys)
+        tg.train_step(tuple(t[s] for t in kg), no_keys, "kg")
+    assert sorted(tg._step_graphs) == ["full", "kg:full"]
+    te.train_step(tuple(t[0] for t in cf), no_keys)
+    te.train_step(tuple(t[0] for t in kg), no_keys, "kg")
+    snap = tg.snapshot(optimizer=True)
+
+    def run(tr):
+        tr.restore(snap)
+        losses = []
+        for s in range(2, 5):
+            losses.append(tr.train_step(tuple(t[s % cf[0].shape[0]] for t in cf),
+                                        no_keys)[0].clone())
+        for s in range(2, 5):
+            losses.append(tr.train_step(tuple(t[s % kg[0].shape[0]] for t in kg), no_keys,
+                                        "kg")[0].clone())
+        torch.cuda.synchronize()
+        return torch.stack(losses), _state(tr)
+
+    l1, s1 = run(te)
+    l2, s2 = run(tg)
+    assert torch.equal(l1, l2)
+    _assert_match(s2, s1, exact=True)
+
+
+@pytest.mark.gpu
+def test_kgat_refresh_between_epochs_feeds_the_graphs(cuda):
+    """The refresh after an epoch writes the new attention into the buffer
+    the step and encode graphs read: a replayed CF step after it equals an
+    eager step on the new attention bit for bit, and the encode follows."""
+    rec = _kgat(cuda)
+    tg = Trainer(rec.bundle, seed=0, extras=rec.extras)
+    te = Trainer(rec.bundle, seed=0, extras=rec.extras, graphs=False)
+    assert not tg.extras["att_vals"].any()  # the first epoch trains on the zero attention
+    tg.run_epoch(0)  # captures both phases' graphs, then refreshes
+    buf = tg.extras["att_vals"]
+    first = buf.clone()
+    assert first.abs().sum() > 0
+    tg.encode()
+    cf, kg = tg.sample_epoch(), tg.sample_kg_epoch()
+    no_keys = torch.zeros(0, 2, dtype=torch.int64, device=cuda)
+    tg.train_step(tuple(t[0] for t in kg), no_keys, "kg")  # a replay: the state moves
+    tg.end_epoch()
+    assert tg.extras["att_vals"] is buf and not torch.equal(buf, first)
+    u, i = tg.encode()
+    ue, ie = rec.bundle.encode_eval(tg.extras)
+    assert torch.equal(u, ue) and torch.equal(i, ie)
+    te.train_step(tuple(t[0] for t in cf), no_keys)  # Adam's state exists
+    te.train_step(tuple(t[0] for t in kg), no_keys, "kg")
+    # the two trainers share the module: each step starts from the snapshot
+    snap = tg.snapshot(optimizer=True)
+    batch = tuple(t[1] for t in cf)
+    tg.restore(snap)
+    got = tg.train_step(batch, no_keys)[0].clone()
+    torch.cuda.synchronize()
+    got_state = _state(tg)
+    te.restore(snap)
+    want = te.train_step(batch, no_keys)[0].clone()
+    torch.cuda.synchronize()
+    assert "full" in tg._step_graphs and torch.equal(got, want)
+    _assert_match(got_state, _state(te), exact=True)
+
+
+@pytest.mark.gpu
+def test_relation_gather_matches_plain_and_repeats(cuda):
+    """`relation_lookup` (a one-hot matmul) over a KG batch's relation ids
+    (runs of thousands of one id): the plain gather's values, a backward
+    within 1e-5 of the f64 one, as the index backward's, bit for bit from
+    run to run."""
+    from hypergraph_diffusion_for_recommendation_tpu_torch.models.kg_common import relation_lookup
+
+    gen = torch.Generator(cuda).manual_seed(0)
+    rel = torch.randn(10, 64, device=cuda, generator=gen)
+    # the synthetic KG's mix: two relations hold most triples
+    r = torch.multinomial(torch.tensor([8.0, 8.0, 1.7, 1.7, 1.7, 1.0, 1.0, 0.5, 0.5, 0.5],
+                                       device=cuda), 8192, replacement=True, generator=gen)
+    g = torch.randn(8192, 64, device=cuda, generator=gen)
+
+    def grad(fn, x):
+        x = x.clone().requires_grad_(True)
+        out = fn(x, r)
+        (dx,) = torch.autograd.grad((out * g.to(x.dtype)).sum(), x)
+        return out.detach(), dx
+
+    out, dx = grad(relation_lookup, rel)
+    again = grad(relation_lookup, rel)
+    plain_out, plain_dx = grad(lambda x, i: x[i], rel)
+    _, ref_dx = grad(lambda x, i: x[i], rel.double())
+    assert torch.equal(out, plain_out)
+    assert torch.equal(out, again[0]) and torch.equal(dx, again[1])
+    scale = float(ref_dx.abs().max())
+    assert float((dx.double() - ref_dx).abs().max()) <= 1e-5 * scale
+    assert float((plain_dx.double() - ref_dx).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.gpu

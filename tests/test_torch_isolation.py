@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it (and serving and training
-KHGRec, HGNN_HD3, LightGCN, BUIR, SGL, AutoCF, LRMRec and KGIN on the CPU)
-pulls in neither JAX, flax, optax, nor the JAX package."""
+KHGRec, HGNN_HD3, LightGCN, BUIR, SGL, AutoCF, LRMRec, KGIN, KGAT,
+HKGRippleNet and MHCN on the CPU) pulls in neither JAX, flax, optax, nor the
+JAX package."""
 
 import subprocess
 import sys
@@ -18,8 +19,9 @@ from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import (
 from hypergraph_diffusion_for_recommendation_tpu_torch.ops import dropout, losses, sampling
 from hypergraph_diffusion_for_recommendation_tpu_torch.train import optim, trainer
 from hypergraph_diffusion_for_recommendation_tpu_torch.models import (
-    autocf, dhcf, dhcf_diffusion, hccf, hccf_diffusion, hd_family, hgcn, kgin_kgcl, khgrec,
-    layers, lightgcn, mf, sgl, sht, ssl_family)
+    autocf, dhcf, dhcf_diffusion, hccf, hccf_diffusion, hd_family, hgcn, kgat, kgin_kgcl, khgrec,
+    ktup_ripplenet, layers, lightgcn, mf, sgl, sht, social_models, ssl_family)
+from hypergraph_diffusion_for_recommendation_tpu_torch.data import social
 from hypergraph_diffusion_for_recommendation_tpu_torch.bench import gather_fusion as probe, timing
 {extra}
 bad = sorted(m for m in sys.modules
@@ -100,6 +102,28 @@ for name in ('SGL', 'AutoCF', 'LRMRec', 'KGIN'):
 """
 
 
+# the KG recommenders and the social models: KGAT (the alternating epoch and its
+# refresh), HKGRippleNet (its host ripple sets) and MHCN (a synthetic trust
+# network built by Recommender.build) for one epoch
+_RUN_KG_SOCIAL = """
+from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+from hypergraph_diffusion_for_recommendation_tpu_torch.data import synthetic_dataset
+from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender
+data = synthetic_dataset(n_users=60, n_items=80, mean_degree=10.0, seed=1, with_kg=True)
+for name in ('KGAT', 'HKGRippleNet', 'MHCN'):
+    rec = Recommender(make_config(name, embedding_size=16, relation_dim=16, batch_size=64,
+                                  batch_size_kg=128, eval_user_batch=64, item_ranking=(10, 20),
+                                  max_epoch=1), device='cpu')
+    rec.build(data)
+    assert set(rec.execute()) == {10, 20}
+    losses = rec.result.history[0].losses
+    if name == 'KGAT':
+        assert set(losses) == {'cf_loss', 'kg_loss', 'train_loss'}
+        assert rec.extras['att_vals'].abs().sum() > 0
+    assert (rec.bundle.kg is not None) == (name != 'MHCN')
+"""
+
+
 def _probe(extra: str = ""):
     return subprocess.run([sys.executable, "-c", _PROBE.format(extra=extra)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -131,6 +155,12 @@ def test_zoo_training_runs_without_jax():
 
 def test_adjacency_forms_training_runs_without_jax():
     proc = _probe(_RUN_ADJACENCY)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_kg_and_social_training_runs_without_jax():
+    proc = _probe(_RUN_KG_SOCIAL)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
 
