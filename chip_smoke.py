@@ -140,6 +140,23 @@ Phases, in order; any failure exits non-zero:
      kernel, the encode and one step against the plain versions with their
      SpMM launches by kernel name (`REST`), serving, and the replayed step
      bit for bit its eager step with its times.
+ 19. SASRec and CL4SRec in the SASRec paper's configuration (`SEQ_TRAIN`: d
+     50, 2 blocks, 1 head, max length 50, batch 128, lr 0.001; dropout 0.5 at
+     the LastFM shape, 0.2 at ML-1M density; CL4SRec's cl_rate 0.1, temp 1):
+     the encode graph bit for bit the eager encode, SEQ_EPOCHS epochs through
+     `Recommender.train()` (0 SpMM launches; examples/s; Recall@20 above the
+     untrained state's), serving, and the replayed step bit for bit the eager
+     step after 1 and 8 steps, with its wall, device time and idle share.
+ 20. the CLI from files: the LastFM-shape split written in the reference
+     layout and parsed by the native library (against its plain parser);
+     `cli.main` for KHGRec in bench.py's configuration (`--experiment=missing
+     --missing_pct=20 --export_embeddings`, 2 epochs: kernel 1 launches, the
+     JAX package's artifact headers) and SASRec (`--experiment=cold_start
+     --group_id=1`: no SpMM); `serving_cli` over the export; and resume on the
+     card: a fresh Trainer restores the checkpoint of a 2-epoch
+     `fit(ckpt_every=1)` and its next epoch equals an uninterrupted run's third
+     bit for bit (loss, parameters, Adam states, extras), for KHGRec and for
+     KGAT (two Adam instances, two step graphs).
 
 Each phase's seconds are printed as it ends (`[time]`), and all of them
 with the total before the result lines.
@@ -353,6 +370,25 @@ REFRESH_RTOL = 1e-4
 REST = {"KTUP": (0, 0), "HKGRippleNet": (0, 0), "MHCN": (14, 7), "SEPT": (12, 2)}
 REST_WIDTH = dict(embedding_size=64, batch_size=2048, batch_size_kg=8192,
                   compute_dtype="bfloat16", eval_user_batch=512)
+# SASRec at full width: the SASRec paper's configuration (Kang & McAuley, ICDM 2018, §IV: d 50,
+# 2 blocks, 1 head, max length 50, batch 128, lr 0.001; dropout 0.5 on the sparse data, 0.2 on
+# ML-1M); CL4SRec on the same encoder with the JAX package's test values (cl_rate 0.1, temp 1)
+SEQ_TRAIN = dict(embedding_size=50, n_layers=2, batch_size=128, lrate=0.001, cl_rate=0.1,
+                 temp=1.0, eval_user_batch=512)
+SEQ_DROPOUT = {"lastfm": 0.5, "ml1m": 0.2}
+SEQ_EPOCHS = 3
+# the CLI phase: KHGRec in bench.py's configuration as flags (the CLI has no compute_dtype
+# flag: the f32 operand), then SASRec in the paper's; both for 2 epochs
+CLI_KHGREC = ["--model=KHGRec", "--hyper_dim=128", "--relation_dim=32", "--n_layers=2",
+              "--batch_size=2048", "--batch_size_kg=8192", "--mode=full", "--drop_rate=0.2",
+              "--p=0.3", "--temp=1.0", "--cl_rate=0.01", "--lrate=0.001", "--max_epoch=2",
+              "--experiment=missing", "--missing_pct=20", "--export_embeddings"]
+CLI_SASREC = ["--model=SASRec", "--embedding_size=50", "--n_layers=2", "--batch_size=128",
+              "--drop_rate=0.5", "--lrate=0.001", "--max_epoch=2", "--experiment=cold_start",
+              "--group_id=1", "--export_embeddings"]
+# the JAX package's artifact headers (utils/logging.py), at the CLI's top-N 10, 20, 40
+PERF_HEADER = "epoch,train_time,test_time,hit@40,precision@40,recall@40,ndcg@40"
+FINAL_HEADER = "topN,hit_ratio,precision,recall,ndcg"
 
 
 def log(*a) -> None:
@@ -2356,6 +2392,253 @@ def phase_rest(lastfm, ml1m, card: str) -> list[dict]:
     return out
 
 
+def phase_sequential(shape: str, data, card: str) -> list[dict]:
+    """SASRec and CL4SRec at full width (`SEQ_TRAIN`, dropout `SEQ_DROPOUT`):
+    the encode graph's replay bit for bit the eager encode, the untrained
+    state's Recall@20, the main path (SEQ_EPOCHS epochs through
+    `Recommender.train()`, every step and encode a replayed graph) with 0
+    SpMM launches and Recall@20 above the untrained state's, serving, and
+    the replayed step bit for bit the eager step (`graph_check`) with its
+    times."""
+    import gc
+
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender, Trainer
+
+    out = []
+    for model in ("SASRec", "CL4SRec"):
+        tag = f"{model}/{shape}"
+        t0 = time.time()
+        rec = Recommender(make_config(model, **SEQ_TRAIN, drop_rate=SEQ_DROPOUT[shape],
+                                      item_ranking=(10, 20, 40), max_epoch=SEQ_EPOCHS,
+                                      early_stopping_steps=100), DEVICE)
+        rec.build(data)
+        build_s = time.time() - t0
+        bundle = rec.bundle
+        sd = bundle.seq
+        rec.init_weights(SEED)
+        trainer = Trainer(bundle, seed=SEED, extras=rec.extras)
+        _zero_spmm_launches()
+        u, i = (t.clone() for t in trainer.encode())  # the encode graph's first replay
+        eu, ei = bundle.encode_eval(trainer.extras)
+        torch.cuda.synchronize()
+        if not (torch.equal(u, eu) and torch.equal(i, ei) and torch.isfinite(u).all()):
+            raise AssertionError(f"{tag}: the replayed encode differs from the eager encode")
+        rec.encode()
+        untrained = rec.evaluate()[20]["recall"]
+        batches = trainer.sample_epoch()
+
+        # --- the main path, counted: SEQ_EPOCHS epochs of replayed steps and encodes
+        _zero_spmm_launches()
+        t0 = time.time()
+        result = rec.train(quiet=False)
+        torch.cuda.synchronize()
+        run_s = time.time() - t0
+        launches = _spmm_launches()
+        after = result.final_metrics[20]["recall"]
+        losses = [h.losses["train_loss"] for h in result.history]
+        if launches or not all(math.isfinite(x) for x in losses) or not after > untrained:
+            raise AssertionError(f"{tag}: {SEQ_EPOCHS} epochs launched {launches} SpMM kernels "
+                                 f"(expected none), losses {losses}, Recall@20 {after:.5f} "
+                                 f"against {untrained:.5f} untrained")
+        # padding positions (item 0, position 0) in a batch of windows, on average: the
+        # longest run of one id in the gathers' backward sums
+        pad_per_batch = float((sd.seq[: sd.n_seqs] == 0).float().mean()) * sd.seq[0].numel() \
+            * SEQ_TRAIN["batch_size"]
+        summary = dict(model=model, shape=shape, card=card, drop_rate=SEQ_DROPOUT[shape],
+                       build_s=round(build_s, 3), n_seqs=sd.n_seqs, n_pad=sd.seq.shape[0],
+                       pad_positions_per_batch=round(pad_per_batch, 1),
+                       steps_per_epoch=rec.trainer.n_batches, epochs=len(result.history),
+                       run_s=round(run_s, 3), losses=losses, spmm_launches=0,
+                       recall20_untrained=untrained, recall20_after=after,
+                       examples_per_sec=round(result.examples_per_sec, 1),
+                       epoch_train_s=[round(h.train_time, 4) for h in result.history])
+        log(f"[seq] {tag}: {SEQ_EPOCHS} epochs of {rec.trainer.n_batches} steps in {run_s:.2f} "
+            f"s with their evaluations, {result.examples_per_sec:.1f} examples/s, Recall@20 "
+            f"{after:.5f} (untrained {untrained:.5f}), losses {[round(x, 4) for x in losses]}")
+        summary.update(serve_check(tag, rec, f"{model.lower()}_{shape}"))
+        check = graph_check(tag, bundle, trainer.extras, batches, per_full=0, bitwise=True)
+        summary.update(step_times(check))
+        log(f"[seq] {json.dumps(summary)}")
+        out.append(summary)
+        del rec, bundle, trainer, check
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def resume_check(tag: str, model: str, cfg_kw: dict, data, ckpt_dir: Path) -> dict:
+    """Two epochs through `Trainer.fit(ckpt=..., ckpt_every=1)`; a fresh
+    Trainer of the same bundle restores the last checkpoint, and its next
+    epoch (eager first steps, then its own captures) must equal the third
+    epoch of an uninterrupted run bit for bit: the loss, the parameters,
+    every Adam state and the extras."""
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender, Trainer
+    from hypergraph_diffusion_for_recommendation_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+
+    rec = Recommender(make_config(model, **cfg_kw, item_ranking=(10, 20, 40), max_epoch=3,
+                                  early_stopping_steps=100), DEVICE)
+    rec.build(data)
+    bundle = rec.bundle
+    ckpt = CheckpointManager(str(ckpt_dir), max_to_keep=2)
+    t0 = time.time()
+    Trainer(bundle, seed=SEED).fit(max_epoch=2, quiet=True, ckpt=ckpt, ckpt_every=1)
+    saved = ckpt.latest_step()
+    fit_s = time.time() - t0
+    whole = Trainer(bundle, seed=SEED)  # trainers of one bundle run one after another
+    want_losses = [whole.run_epoch(ep)[0] for ep in range(3)]
+    torch.cuda.synchronize()
+    want = full_state(whole)
+    resumed = Trainer(bundle, seed=SEED)
+    t0 = time.time()
+    start = resumed.restore(ckpt)
+    restore_s = time.time() - t0
+    loss = resumed.run_epoch(2)[0]
+    torch.cuda.synchronize()
+    got = full_state(resumed)
+    ckpt.close()
+    moved = sorted(k for k in want if not torch.equal(got[k], want[k]))
+    log(f"[resume] {tag}: checkpoint of epoch {saved}, restored to start at {start} in "
+        f"{restore_s:.3f} s; epoch 3 loss resumed {loss!r}, uninterrupted {want_losses[2]!r}; "
+        f"tensors that differ: {moved[:6]} of {len(want)}")
+    if saved != 1 or start != 2 or loss != want_losses[2] or moved:
+        raise AssertionError(f"{tag}: the resumed epoch differs from the uninterrupted run "
+                             f"(loss {loss} vs {want_losses[2]}, tensors {moved[:6]})")
+    return dict(model=model, checkpoint_epoch=saved, start_epoch=start, loss=loss,
+                tensors_equal=len(want), two_epochs_with_checkpoints_s=round(fit_s, 3),
+                restore_s=round(restore_s, 4), checkpoint_bytes=sum(
+                    f.stat().st_size for f in ckpt_dir.glob("ckpt_*.pt")))
+
+
+def phase_cli(lastfm, card: str) -> dict:
+    """The CLI from files: the LastFM-shape split written in the reference
+    layout (`<data_dir>/lastfm/train.txt`, `test.txt`, `processed_lastfm.kg`);
+    `cli.main` for KHGRec (`CLI_KHGREC`: kernel 1 must launch; the JAX
+    package's artifact headers) and SASRec (`CLI_SASREC`: no SpMM), each file
+    parsed by the native library (the plain parser never called, and equal
+    to it); `serving_cli` over KHGRec's export; then resume on the card for
+    KHGRec and KGAT (`resume_check`)."""
+    import csv
+    import os
+    import shutil
+
+    import numpy as np
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch import cli, native, serving_cli
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data import io
+    from hypergraph_diffusion_for_recommendation_tpu_torch.utils.logging import run_dir
+
+    root = OUT_DIR / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    ddir = root / "dataset" / "lastfm"
+    train, test, kg = lastfm
+    t0 = time.time()
+    io.write_interactions(str(ddir / "train.txt"), train)
+    io.write_interactions(str(ddir / "test.txt"), test)
+    io.write_kg(str(ddir / "processed_lastfm.kg"), kg[["h", "r", "t"]].to_numpy())
+    summary = dict(card=card, write_s=round(time.time() - t0, 3))
+    for name in ("train.txt", "processed_lastfm.kg"):  # the library against the plain parser
+        ncols = 3 if name.endswith(".kg") else 2
+        t0 = time.time()
+        fast = native.load_columns(str(ddir / name), ncols)
+        fast_s = time.time() - t0
+        t0 = time.time()
+        plain = native.load_columns(str(ddir / name), ncols, plain=True)
+        plain_s = time.time() - t0
+        if not np.array_equal(fast, plain) or fast.shape[0] != (len(kg) if ncols == 3 else
+                                                               len(train)):
+            raise AssertionError(f"cli: the native parse of {name} differs from the plain one")
+        summary[f"parse_{name}"] = dict(rows=int(fast.shape[0]), native_s=round(fast_s, 4),
+                                        plain_s=round(plain_s, 4))
+        log(f"[cli] {name}: {fast.shape[0]} rows parsed natively in {fast_s:.4f} s, plainly in "
+            f"{plain_s:.4f} s (equal)")
+
+    parses = []
+    real_load = io.load_columns
+
+    def counted_load(path, ncols, plain=False):
+        parses.append((os.path.basename(path), plain))
+        return real_load(path, ncols, plain)
+
+    common = ["--dataset=lastfm", f"--data_dir={root / 'dataset'}",
+              f"--output_dir={root / 'results'}", "--quiet"]
+    cwd = os.getcwd()
+    os.chdir(root)  # the run log (Config.log_dir, ./log) lands here
+    io.load_columns = counted_load
+    try:
+        runs = {}
+        for model, argv in (("KHGRec", CLI_KHGREC), ("SASRec", CLI_SASREC)):
+            parses.clear()
+            _zero_spmm_launches()
+            t0 = time.time()
+            result = cli.main(argv + common)
+            run_s = time.time() - t0
+            launches = _spmm_launches()
+            cfg = cli.build_config(cli.parse_args(argv + common))
+            rd = Path(run_dir(cfg))
+            with open(rd / "train_performance.csv") as f:
+                perf_header = f.readline().strip()
+            with open(rd / "loss.csv") as f:
+                loss_header = f.readline().strip()
+            with open(rd / "final_metrics.csv") as f:
+                final_rows = list(csv.reader(f))
+            want_loss = ",".join(["epoch"] + sorted(result.history[0].losses))
+            kernel_ok = (launches.get("segment_spmm_rows", 0) > 0 if model == "KHGRec"
+                         else not launches)
+            log(f"[cli] {model}: {len(result.history)} epochs in {run_s:.2f} s, SpMM launches "
+                f"from Python {launches}, files parsed {parses}, final Recall@20 "
+                f"{result.final_metrics[20]['recall']:.5f}, artifacts {sorted(os.listdir(rd))}")
+            if (not kernel_ok or len(result.history) != 2 or perf_header != PERF_HEADER
+                    or loss_header != want_loss or final_rows[0] != FINAL_HEADER.split(",")
+                    or len(final_rows) != 4 or not parses or any(p for _, p in parses)
+                    or not (rd / "embeddings.npz").exists()):
+                raise AssertionError(f"cli {model}: launches {launches}, headers {perf_header!r} "
+                                     f"{loss_header!r} {final_rows[:1]}, parses {parses}")
+            runs[model] = dict(run_s=round(run_s, 3), launches=launches, parses=len(parses),
+                               recall20=result.final_metrics[20]["recall"],
+                               examples_per_sec=round(result.examples_per_sec, 1),
+                               best_epoch=result.best_epoch, run_dir=str(rd.relative_to(root)))
+        summary["runs"] = runs
+        # serving_cli over KHGRec's export: raw ids in, ranked raw items out
+        export = root / runs["KHGRec"]["run_dir"] / "embeddings.npz"
+        users = [int(u) for u in np.unique(train[:, 0])[:8]]
+        tsv = root / "recs.tsv"
+        t0 = time.time()
+        rc = serving_cli.main(["--embeddings", str(export), "--users",
+                               ",".join(map(str, users)), "--k", "20", "--out", str(tsv),
+                               "--device", DEVICE])
+        serve_s = time.time() - t0
+        rows = [line.split("\t") for line in tsv.read_text().splitlines()]
+        ok = rc == 0 and len(rows) == 8 * 20 and all(
+            [int(r[1]) for r in rows[k * 20:(k + 1) * 20]] == list(range(1, 21))
+            and all(float(a[3]) >= float(b[3]) for a, b in
+                    zip(rows[k * 20:(k + 1) * 20], rows[k * 20 + 1:(k + 1) * 20]))
+            for k in range(8))
+        log(f"[cli] serving_cli: top-20 for 8 users in {serve_s:.3f} s (rc {rc}); first row "
+            f"{rows[0] if rows else None}")
+        if not ok:
+            raise AssertionError(f"cli: serving_cli gave rc {rc} and {len(rows)} rows")
+        summary["serving_cli_s"] = round(serve_s, 3)
+    finally:
+        io.load_columns = real_load
+        os.chdir(cwd)
+    if not native.library_path().exists():
+        raise AssertionError("cli: the native library was not built")
+    summary["resume"] = [resume_check("KHGRec/lastfm", "KHGRec", KHGREC_TRAIN, lastfm,
+                                      root / "ckpt_khgrec"),
+                         resume_check("KGAT/lastfm", "KGAT", KGAT_TRAIN, lastfm,
+                                      root / "ckpt_kgat")]
+    log(f"[cli] {json.dumps(summary)}")
+    return summary
+
+
 def main() -> int:
     try:
         import torch
@@ -2441,10 +2724,14 @@ def main() -> int:
                   fit=shape == "lastfm") for shape in ("lastfm", "ml1m")]
     rest = timed("18 KTUP, HKGRippleNet, MHCN, SEPT", phase_rest, lastfm,
                  graphs["ml1m"]["data"], card)
+    sequential = [s for shape in ("lastfm", "ml1m") for s in timed(
+        f"19 SASRec, CL4SRec {shape}", phase_sequential, shape, graphs[shape]["data"], card)]
+    cli_run = timed("20 CLI", phase_cli, lastfm, card)
     (OUT_DIR / "summary.json").write_text(json.dumps(dict(
         kernels=rows, slices=summaries, training=trains, hd=hd, hd_variants=variants,
         prop_cache=caches, family=family, lightgcn=lightgcn, zoo=zoo, joint=joint, sgl=sgl,
-        adjacency=adjacency, kgat=kgat, rest=rest, seconds=seconds), indent=1))
+        adjacency=adjacency, kgat=kgat, rest=rest, sequential=sequential, cli=cli_run,
+        seconds=seconds), indent=1))
     log(f"[time] per phase: {json.dumps(seconds)}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

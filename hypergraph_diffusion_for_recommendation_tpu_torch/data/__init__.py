@@ -9,6 +9,7 @@ from .device import (
     build_kg_device_data,
     make_adj_pair,
 )
+from .experiments import apply_experiment
 from .knowledge import KnowledgeData, build_knowledge
 from .social import SocialData, build_social, synthetic_social
 from .synthetic import synthetic_dataset
@@ -24,6 +25,7 @@ __all__ = [
     "build_cf_device_data",
     "build_kg_device_data",
     "make_adj_pair",
+    "apply_experiment",
     "KnowledgeData",
     "build_knowledge",
     "SocialData",

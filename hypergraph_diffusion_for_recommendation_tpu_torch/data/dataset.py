@@ -1,11 +1,11 @@
 """Host-side interaction dataset — semantics parity with reference
-`data/ui_graph.py` (`Interaction`), vectorised with numpy/pandas. The
+`data/ui_graph.py` (`Interaction`), vectorised with numpy. The
 port's copy of the JAX package's `data/dataset.py`; it gives identical
 arrays for identical inputs.
 
 Key parity points:
   * dense ids are assigned in FIRST-APPEARANCE order over the training
-    edges (ui_graph.py:43-52) — pd.factorize reproduces this exactly;
+    edges (ui_graph.py:43-52) — `native.factorize` reproduces this exactly;
   * test entries keep only users seen in training, but KEEP items never
     seen in training (ui_graph.py:63-68). Such items can never be
     retrieved yet still count in recall/NDCG denominators — the eval
@@ -20,9 +20,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
-import pandas as pd
 import scipy.sparse as sp
 
+from ..native import factorize
 from .normalize import normalize_graph_mat
 
 
@@ -95,10 +95,8 @@ def build_interaction(train_pairs: np.ndarray, test_pairs: np.ndarray) -> Intera
         if len(test_pairs) else np.zeros((0, 2), np.int64)
     )
 
-    train_u_dense, uniq_users = pd.factorize(train_pairs[:, 0])
-    train_i_dense, uniq_items = pd.factorize(train_pairs[:, 1])
-    train_u_dense = train_u_dense.astype(np.int32)
-    train_i_dense = train_i_dense.astype(np.int32)
+    train_u_dense, uniq_users = factorize(train_pairs[:, 0])
+    train_i_dense, uniq_items = factorize(train_pairs[:, 1])
     n_users = len(uniq_users)
     n_items = len(uniq_items)
     user_map = {int(u): k for k, u in enumerate(uniq_users)}

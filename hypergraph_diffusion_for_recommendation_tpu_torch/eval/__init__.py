@@ -1,4 +1,4 @@
-from .metrics import metrics_to_host, ranking_metrics
+from .metrics import metrics_from_topk, metrics_to_host, ranking_metrics
 from .serving import Retriever, export_embeddings
 
 
@@ -23,5 +23,5 @@ def early_stopping(
     return best, should_stop
 
 
-__all__ = ["ranking_metrics", "metrics_to_host", "Retriever", "export_embeddings",
-           "early_stopping"]
+__all__ = ["ranking_metrics", "metrics_from_topk", "metrics_to_host", "Retriever",
+           "export_embeddings", "early_stopping"]

@@ -1,6 +1,7 @@
 """On-device ranking evaluation — the port of the JAX package's
 `eval/metrics.py`: blocked exact-f32 scoring, rated-item mask, top-k and
-vectorised Hit/Precision/Recall/NDCG, with the reference's formulas
+vectorised Hit/Precision/Recall/NDCG (also from given top-k ids:
+`metrics_from_topk`), with the reference's formulas
 (util/evaluation.py):
 
   hits[u]    = |top_N(u) ∩ test(u)|
@@ -33,15 +34,40 @@ def ranking_metrics(
     """Returns {"hit_ratio": [len(top_ns)], "precision": ..., "recall": ...,
     "ndcg": ...} as tensors on the embeddings' device, ordered like
     `top_ns`."""
+    max_n = max(int(n) for n in top_ns)
+
+    def top_ids(s: int, e: int) -> torch.Tensor:
+        users = eval_data.test_users[s:e].long()
+        scores = exact_scores(user_emb[users], item_emb)
+        return masked_topk(scores, rated_pad[users], max_n)[1]
+
+    return _metrics(top_ids, eval_data, top_ns, block, user_emb.device, "ranking_metrics")
+
+
+def metrics_from_topk(
+    top_ids: torch.Tensor,
+    eval_data: EvalData,
+    top_ns: tuple[int, ...] = (10, 20, 40),
+    block: int = 256,
+) -> dict[str, torch.Tensor]:
+    """The metrics of `ranking_metrics` from PRE-COMPUTED top-max_n item ids
+    per padded test user ([n_pad, >= max_n], the JAX package's
+    distributed-top-k eval path)."""
+    return _metrics(lambda s, e: top_ids[s:e], eval_data, top_ns, block, top_ids.device,
+                    "metrics_from_topk")
+
+
+def _metrics(top_ids, eval_data: EvalData, top_ns, block: int, dev, name: str) -> dict:
+    """Hit/Precision/Recall/NDCG over the padded test users, a block at a
+    time; `top_ids(s, e)` gives the top-max_n ids of users s..e-1."""
     top_ns = tuple(int(n) for n in top_ns)
     max_n = max(top_ns)
     n_pad = eval_data.test_users.shape[0]
     if n_pad == 0:
-        raise ValueError("ranking_metrics: empty eval set (0 padded test users); nothing to score")
+        raise ValueError(f"{name}: empty eval set (0 padded test users); nothing to score")
     block = min(block, n_pad)
     if n_pad % block:
-        raise ValueError(f"ranking_metrics: {n_pad} padded test users is not a multiple of {block}")
-    dev = user_emb.device
+        raise ValueError(f"{name}: {n_pad} padded test users is not a multiple of {block}")
     # ctable[k] = sum_{n<k} 1/log2(n+2), computed in float64 then cast, as
     # the JAX package's discount table is
     d = 1.0 / np.log2(np.arange(max_n) + 2.0)
@@ -50,13 +76,11 @@ def ranking_metrics(
 
     total = torch.zeros(len(top_ns), 3, dtype=torch.float32, device=dev)
     for s in range(0, n_pad, block):
-        users = eval_data.test_users[s : s + block].long()
         vf = eval_data.user_valid[s : s + block].float()
         test_pos = eval_data.test_pos_pad[s : s + block]
         cnt = eval_data.test_counts[s : s + block].long()
-        scores = exact_scores(user_emb[users], item_emb)
-        _, top_ids = masked_topk(scores, rated_pad[users], max_n)
-        hit_f = (top_ids[:, :, None] == test_pos[:, None, :]).any(dim=-1).float()
+        ids = top_ids(s, s + block)[:, :max_n]
+        hit_f = (ids[:, :, None] == test_pos[:, None, :]).any(dim=-1).float()
         rows = []
         for n in top_ns:
             hits_n = hit_f[:, :n].sum(dim=1)

@@ -15,6 +15,7 @@ from . import (  # noqa: F401
     ktup_ripplenet,
     lightgcn,
     mf,
+    sasrec,
     sgl,
     sht,
     social_models,

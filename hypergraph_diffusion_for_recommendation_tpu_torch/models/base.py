@@ -14,8 +14,9 @@ MF, HCCF, HGCN, SHT and the SSL family: DirectAU, SimGCL, XSimGCL, NCL,
 MixGCF, SSL4Rec, BUIR, SelfCF), and those of the other adjacency forms
 (SGL, DHCF, DHCF_diffusion, HCCF_diffusion, KGIN, KGCL, AutoCF, LRMRec),
 the KG recommenders (KGAT with its alternating epoch, KTUP, HKGRippleNet)
-and the social models (MHCN, SEPT, which take `social`); the sequential
-models come with a later slice of the port.
+the social models (MHCN, SEPT, which take `social`) and the sequential
+models (SASRec, CL4SRec, whose bundles carry `seq` and train on sequence
+batches).
 """
 
 from __future__ import annotations
@@ -91,6 +92,10 @@ class ModelBundle:
     # triple list, KGAT.py:128-133); the trainer copies them into the extras
     # buffers in place, which the graphs read
     epoch_update_extras: Optional[Callable[[Extras, torch.Generator], Extras]] = None
+    # sequential models carry padded sequence arrays (`data.sequence.SeqDeviceData`)
+    # and switch the trainer to windowed batches (base/seq_recommender.py)
+    seq: Any = None
+    batch_kind: str = "pairwise"  # 'pairwise' | 'sequence'
 
 
 def flax_init(module: nn.Module) -> Callable[[torch.Generator], Extras]:
@@ -121,6 +126,7 @@ def register_model(name: str):
 # builders consume (the JAX package's table, cut to the ported modules)
 _MODULE_DATA_NEEDS = {
     "mf": frozenset(),
+    "sasrec": frozenset(),
     "kgat": frozenset(),
     "ktup_ripplenet": frozenset(),
     "lightgcn": frozenset({"adj"}),

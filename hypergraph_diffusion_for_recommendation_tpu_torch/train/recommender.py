@@ -42,32 +42,25 @@ class Recommender:
         """Build the interaction data (and, with `cfg.use_knowledge`, the
         knowledge data), their device graphs and the model. `data` is a
         (train, test, kg_df) triple, kg_df None or ignored for a model
-        without knowledge; None resolves the configured dataset (only
-        `synthetic` so far). A social model given no social data gets the
+        without knowledge; None resolves the configured dataset and
+        experiment (`cli.load_dataset`: the synthetic dataset, or the files
+        under `cfg.data_dir`). A social model given no social data gets the
         synthetic trust network of `synthetic_social(inter, n_per_user=5)`."""
         import inspect
 
+        from ..cli import load_dataset
         from ..data import (
             build_cf_device_data,
             build_interaction,
             build_kg_device_data,
             build_knowledge,
             build_social,
-            synthetic_dataset,
             synthetic_social,
         )
         from ..models import MODEL_REGISTRY, build_model, model_data_needs
 
         cfg = self.cfg
-        if data is None:
-            if cfg.dataset != "synthetic" or cfg.experiment != "full":
-                raise NotImplementedError(
-                    "the port loads only dataset=synthetic with experiment=full so far"
-                )
-            data = synthetic_dataset(
-                n_users=1890, n_items=17632, mean_degree=49.0, seed=7, with_kg=cfg.use_knowledge
-            )
-        train, test, kg_df = data
+        train, test, kg_df = load_dataset(cfg) if data is None else data
         # the kernel layout's gathered operand and kind: the JAX package's
         # PALLAS_BF16 / PALLAS_DEDUP / PALLAS_INT8 switches, passed explicitly
         layout = dict(bf16=cfg.compute_dtype == "bfloat16", gather_layout=cfg.gather_layout)

@@ -1,5 +1,6 @@
-"""Generic trainer — the port of the JAX package's `train/trainer.py`,
-the pairwise single-device subset, KGAT's alternating epoch included.
+"""Generic trainer — the port of the JAX package's `train/trainer.py`
+(single device): pairwise batches, KGAT's alternating epoch, the sequence
+batches of SASRec and CL4SRec, run artifacts and checkpoint/resume.
 
 The lifecycle (reference base/recommender.py:80-114):
   Trainer.fit() -> per epoch [run_epoch -> evaluate -> plateau.step ->
@@ -32,6 +33,12 @@ them), and its `epoch_setup` runs eagerly at the start of each epoch
 place. A bundle's `epoch_update_extras` runs eagerly after the epoch's
 steps and before its evaluation (KGAT's attention refresh).
 
+A bundle with `batch_kind == "sequence"` (SASRec, CL4SRec) trains on
+shuffled [B, L] windows of its `seq` data with one negative per position
+(`_sequence_epoch_batches`); its step graph's fixed inputs take those
+shapes, and its dropout and augmentation draws come from the card
+generator like any other loss's.
+
 The alternating epoch (a bundle with `alternating`, KGAT; the JAX
 trainer's `_build_alternating_epoch_fn`): a CF phase over the epoch's CF
 batches with `batch_loss` and the CF optimiser, then a KG phase over
@@ -62,7 +69,18 @@ dropout and the losses' other draws come from (passed to `batch_loss`;
 each step graph draws from it at replay; `epoch_setup` draws from it
 eagerly). A model with cached propagation keeps its step counter as
 a host integer in the extras, so no step waits on the card to pick its
-branch. Meshes and checkpoints wait.
+branch.
+
+Checkpoints (`fit(ckpt=..., ckpt_every=...)`, `restore(ckpt)`, as the JAX
+trainer's `fit` and `restore`, train/trainer.py:1080-1266): a checkpoint
+holds the parameters, every phase's Adam state and learning rate, the
+extras, the epoch and the three generators' states, so a resumed run's
+next epoch equals the uninterrupted run's bit for bit. `restore` writes
+into the tensors the step graphs read (parameters, Adam's state, extras
+buffers); the plateau schedules are not saved (neither are they in the JAX
+package). `Trainer(..., debug_nans=True)` runs every step eagerly under
+`torch.autograd.detect_anomaly` and raises at the first non-finite loss.
+Meshes wait.
 """
 
 from __future__ import annotations
@@ -79,7 +97,12 @@ from ..eval import early_stopping
 from ..eval.metrics import metrics_to_host, ranking_metrics
 from ..models.base import Extras, ModelBundle
 from ..ops.dropout import epoch_key_words, key_words
-from ..ops.sampling import HostExactSampler, epoch_kg_batches, epoch_pairwise_batches
+from ..ops.sampling import (
+    HostExactSampler,
+    epoch_kg_batches,
+    epoch_pairwise_batches,
+    sample_negatives_chunked,
+)
 from .graphs import EncodeGraph, capture
 from .optim import PlateauState, make_optimizer, set_lr
 
@@ -140,19 +163,24 @@ def clip_grads_(grads: list[torch.Tensor], max_norm: float) -> None:
 
 class Trainer:
     def __init__(self, bundle: ModelBundle, seed: Optional[int] = None,
-                 extras: Optional[Extras] = None, graphs: Optional[bool] = None):
+                 extras: Optional[Extras] = None, graphs: Optional[bool] = None,
+                 debug_nans: bool = False):
         """`extras` given: train from the module's current weights with
         (a copy of) these extras; else initialise both from `seed` (default
         `cfg.seed`). `graphs`: None runs the steps and the encode as CUDA
         graphs on a CUDA card and eagerly on the CPU; False runs them
-        eagerly on the card too."""
+        eagerly on the card too. `debug_nans`: every step eager, under
+        anomaly detection, raising at the first non-finite loss."""
         if bundle.batch_loss is None:
             raise ValueError(f"{bundle.name} has no training loss in the port yet")
         self.bundle = bundle
         self.cfg = cfg = bundle.cfg
         seed = cfg.seed if seed is None else seed
         self.device = bundle.cf.edge_u.device
-        if graphs is None:
+        self.debug_nans = debug_nans
+        if debug_nans:
+            graphs = False
+        elif graphs is None:
             graphs = self.device.type == "cuda"
         elif graphs and self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need the model on a CUDA card, not {self.device}")
@@ -181,9 +209,14 @@ class Trainer:
                                            patience=cfg.lr_patience)
             self._phases["kg"] = _Phase(self.kg_opt)
             self.n_kg_batches = bundle.kg.n_kg_train // cfg.batch_size_kg + 1
-        self.n_batches = -(-bundle.cf.n_train // cfg.batch_size)
+        sequence = bundle.batch_kind == "sequence"
+        n_rows = bundle.seq.seq.shape[0] if sequence else bundle.cf.n_train
+        self.n_batches = -(-n_rows // cfg.batch_size)
         if cfg.sampler not in ("redraw", "exact"):
             raise ValueError(f"sampler {cfg.sampler!r} is not 'redraw' or 'exact'")
+        if sequence and cfg.sampler == "exact":
+            raise ValueError("--sampler=exact is not supported for sequence models "
+                             "(their negatives are drawn on the card with the epoch's windows)")
         self._exact = self._make_exact_sampler() if cfg.sampler == "exact" else None
         # the state the cached encode was taken at: bumped by every step
         # and every restore
@@ -216,9 +249,13 @@ class Trainer:
         """One epoch of batches on the card: (users, pos, neg) and, for a
         KG model that is not alternating, (h, r, pos_t, neg_t), each
         [n_batches, B] int32 (an alternating model's KG batches come from
-        `sample_kg_epoch`)."""
+        `sample_kg_epoch`); for a sequence model (seq, pos, y, neg, valid),
+        [n_batches, B, L] and [n_batches, B]."""
         b, cfg = self.bundle, self.cfg
         cf = b.cf
+        if b.batch_kind == "sequence":
+            return _sequence_epoch_batches(self.dev_gen, b.seq, cfg.batch_size,
+                                           cfg.neg_resample_rounds)
         joint = b.uses_kg and not b.alternating
         if self._exact is not None:
             host = self._exact.pairwise(self._host_seed(), cfg.batch_size)
@@ -357,7 +394,14 @@ class Trainer:
         branch = b.step_branch(self.extras) if b.step_branch is not None else "full"
         key = _graph_key(phase, branch)
         eager = self._eager_steps.get(key, 0)
-        if not self.graphs or eager < GRAPH_WARMUP_STEPS:
+        if self.debug_nans:
+            with torch.autograd.detect_anomaly():
+                stats, host = self._step_body(batch, edge_keys, phase)
+            self.extras.update(host)
+            if not torch.isfinite(stats[0]):
+                raise FloatingPointError(f"{b.name}: non-finite {phase} loss {float(stats[0])} "
+                                         f"at step {self._version}")
+        elif not self.graphs or eager < GRAPH_WARMUP_STEPS:
             self._eager_steps[key] = eager + 1
             stats, host = self._step_body(batch, edge_keys, phase)
             self.extras.update(host)
@@ -458,10 +502,31 @@ class Trainer:
             snap += (adam, gens)
         return snap
 
-    def restore(self, snap) -> None:
-        """Copy a snapshot back in place: the parameters, the extras
-        buffers and each phase's Adam state keep the addresses the graphs
-        read."""
+    def checkpoint_state(self, epoch: int) -> dict:
+        """What a checkpoint holds after `epoch`: copies on the card of the
+        whole training state (`snapshot(optimizer=True)`), which the next
+        steps do not touch, and each phase's learning rate."""
+        params, extras, adam, gens = self.snapshot(optimizer=True)
+        lrs = [float(ph.opt.param_groups[0]["lr"]) for ph in self._phases.values()]
+        return dict(epoch=epoch, params=params, extras=extras, adam=adam, lrs=lrs,
+                    generators=gens)
+
+    def restore(self, src) -> Optional[int]:
+        """Copy a snapshot back in place, or resume from a checkpoint
+        manager's latest checkpoint and return the epoch to start from (0
+        without one). The parameters, the extras buffers and each phase's
+        Adam state keep the addresses the graphs read; a trainer that has
+        not stepped yet gets Adam's state from the snapshot."""
+        if hasattr(src, "latest_step"):  # a utils.checkpoint.CheckpointManager
+            state = src.restore()
+            if state is None:
+                return 0
+            self.restore((state["params"], state["extras"], state["adam"],
+                          state["generators"]))
+            for ph, lr in zip(self._phases.values(), state["lrs"]):
+                set_lr(ph.opt, lr)
+            return state["epoch"] + 1
+        snap = src
         self.bundle.module.load_state_dict(snap[0])
         for k, v in snap[1].items():
             if torch.is_tensor(v):
@@ -470,14 +535,27 @@ class Trainer:
                 self.extras[k] = v
         if len(snap) > 2:
             for ph, states in zip(self._phases.values(), snap[2]):
+                on_card = ph.opt.defaults.get("capturable") or ph.opt.defaults.get("fused")
                 for p, saved in zip(self._params, states):
+                    live = ph.opt.state[p]
                     for k, v in saved.items():
-                        ph.opt.state[p][k].copy_(v)
+                        if k in live:
+                            live[k].copy_(v)
+                        else:  # no step yet, so no graph reads it
+                            dev = p.device if k != "step" or on_card else torch.device("cpu")
+                            live[k] = v.to(dev, copy=True)
             for g, state in zip((self.host_gen, self.dev_gen, self.drop_gen), snap[3]):
                 g.set_state(state)
         self._version += 1
+        return None
 
-    def fit(self, max_epoch: Optional[int] = None, log_fn=print, quiet: bool = False) -> FitResult:
+    def fit(self, max_epoch: Optional[int] = None, log_fn=print, quiet: bool = False,
+            artifacts=None, ckpt=None, ckpt_every: int = 10, start_epoch: int = 0) -> FitResult:
+        """Epochs `start_epoch`..`max_epoch - 1` (default `cfg.max_epoch`),
+        then the final evaluation from the best epoch's state. `artifacts`
+        (a `utils.logging.RunArtifacts`) gets each epoch's record and the
+        result; `ckpt` (a `utils.checkpoint.CheckpointManager`) saves the
+        state after every `ckpt_every`-th epoch."""
         cfg = self.cfg
         max_epoch = cfg.max_epoch if max_epoch is None else max_epoch
         max_n = cfg.max_n
@@ -494,7 +572,7 @@ class Trainer:
                  else self.bundle.early_stop_patience_scale)
         patience = cfg.early_stopping_steps * scale
 
-        for ep in range(max_epoch):
+        for ep in range(start_epoch, max_epoch):
             t0 = time.time()
             loss, aux = self.run_epoch(ep)
             if self.device.type == "cuda":
@@ -522,8 +600,13 @@ class Trainer:
             else:
                 self.plateau = self.plateau.step(loss)
                 set_lr(self.opt, self.plateau.lr)
+            if ckpt is not None and (ep + 1) % ckpt_every == 0:
+                ckpt.save(ep, self.checkpoint_state(ep))
             eval_t = time.time() - t1
-            result.history.append(EpochRecord(ep, t1 - t0, eval_t, aux, metrics))
+            record = EpochRecord(ep, t1 - t0, eval_t, aux, metrics)
+            result.history.append(record)
+            if artifacts is not None:
+                artifacts.on_epoch(record)
             if not quiet:
                 log_fn(f"epoch {ep + 1:3d} loss {loss:.4f} "
                        + " ".join(f"{k}@{max_n}:{v:.5f}" for k, v in perf.items())
@@ -546,7 +629,39 @@ class Trainer:
         result.best_metrics = best_perf or {}
         result.final_metrics = self.evaluate()
         result.examples_per_sec = examples / max(train_time_total, 1e-9)
+        if artifacts is not None:
+            artifacts.finish(result)
         return result
+
+
+def _sequence_epoch_batches(generator: torch.Generator, seq_data, batch_size: int,
+                            rounds: int) -> tuple[torch.Tensor, ...]:
+    """One epoch of shuffled sequence windows on the card, with one negative
+    per position (`next_batch_sequence`, util/sampler.py:292-320): the rows
+    permuted, cut into ceil(n / B) batches, the tail filled by wrapping
+    around the permutation (modulo n: the JAX package's concat([perm,
+    perm[:total - n]]) wherever that is defined), and negatives redrawn
+    against the user's history, 1-based, 0 where the target is padding.
+    Returns (seq, pos, y, neg) [n_batches, B, L] int32 and the rows' valid
+    mask [n_batches, B]."""
+    n = seq_data.seq.shape[0]
+    dev = seq_data.seq.device
+    n_batches = -(-n // batch_size)
+    perm = torch.randperm(n, generator=generator, device=dev)
+    idx = perm[torch.arange(n_batches * batch_size, device=dev) % n]
+
+    def rows(t):
+        return t[idx].reshape((n_batches, batch_size) + tuple(t.shape[1:]))
+
+    seq, pos, y, valid = (rows(t) for t in (seq_data.seq, seq_data.pos, seq_data.y,
+                                            seq_data.seq_valid))
+    length = seq.shape[-1]
+    users = rows(seq_data.seq_user).repeat_interleave(length, dim=1)  # [n_batches, B * L]
+    # drawn 0-based against the 0-based history (pad -2: never an item), then shifted
+    negs0 = sample_negatives_chunked(generator, users, seq_data.rated_pad_1b - 1,
+                                     seq_data.n_items, rounds)
+    neg = (negs0 + 1).reshape(n_batches, batch_size, length)
+    return seq, pos, y, torch.where(y > 0, neg, 0), valid
 
 
 def _loss_frozen(loss_list: list[float], n: int = _FROZEN_EPOCHS) -> bool:

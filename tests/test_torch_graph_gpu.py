@@ -10,7 +10,8 @@ steps from that state are equal bit for bit, and be within 1e-5 of each
 tensor's scale where they are not (the card's atomic index additions sum
 in another order from run to run). The encode has no backward: its replay
 equals the eager encode bit for bit. A capture that meets a host sync
-raises.
+raises. A checkpoint restored into a fresh trainer resumes training bit for
+bit (its graphs captured after the restore).
 """
 
 import pytest
@@ -228,6 +229,70 @@ def test_relation_gather_matches_plain_and_repeats(cuda):
     scale = float(ref_dx.abs().max())
     assert float((dx.double() - ref_dx).abs().max()) <= 1e-5 * scale
     assert float((plain_dx.double() - ref_dx).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["SASRec", "CL4SRec"])
+def test_sequence_step_graph_replays_its_eager_step(cuda, model):
+    """SASRec's and CL4SRec's step graph (fixed [B, L] inputs; dropout and
+    CL4SRec's augmentations drawn from the registered card generator)
+    against eager steps from one full state, bit for bit."""
+    rec = Recommender(make_config(model, embedding_size=32, batch_size=64, eval_user_batch=128,
+                                  cl_rate=0.1, temp=1.0, item_ranking=(10, 20)), cuda)
+    rec.build(synthetic_dataset(n_users=300, n_items=500, mean_degree=20.0, seed=3))
+    rec.init_weights(0)
+    tg = Trainer(rec.bundle, seed=0, extras=rec.extras)
+    te = Trainer(rec.bundle, seed=0, extras=rec.extras, graphs=False)
+    batches = tg.sample_epoch()
+    assert batches[0].shape == (tg.n_batches, 64, 50)
+    no_keys = torch.zeros(0, 2, dtype=torch.int64, device=cuda)
+    for s in range(2):
+        tg.train_step(tuple(t[s] for t in batches), no_keys)
+    assert sorted(tg._step_graphs) == ["full"]
+    te.train_step(tuple(t[0] for t in batches), no_keys)
+    snap = tg.snapshot(optimizer=True)
+
+    def run(tr):
+        tr.restore(snap)
+        losses = [tr.train_step(tuple(t[s % tg.n_batches] for t in batches), no_keys)[0]
+                  .clone() for s in range(2, 10)]
+        torch.cuda.synchronize()
+        return torch.stack(losses), _state(tr)
+
+    l1, s1 = run(te)
+    l2, s2 = run(tg)
+    assert torch.equal(l1, l2)
+    _assert_match(s2, s1, exact=True)
+    u, i = tg.encode()
+    ue, ie = rec.bundle.encode_eval(tg.extras)
+    assert torch.equal(u, ue) and torch.equal(i, ie)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["KHGRec", "KGAT"])
+def test_resume_on_the_card_is_bit_for_bit(cuda, tmp_path, model):
+    """Two epochs with a checkpoint after each; a fresh trainer restores the
+    last into the tensors its graphs will read, and its next epoch equals
+    the uninterrupted run's third bit for bit (KGAT: both Adam states)."""
+    from hypergraph_diffusion_for_recommendation_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+    )
+
+    def trainer():
+        rec = _kgat(cuda) if model == "KGAT" else _rec(model, cuda)
+        return Trainer(rec.bundle, seed=0)
+
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"))
+    trainer().fit(max_epoch=2, quiet=True, ckpt=ckpt, ckpt_every=1)
+    whole = trainer()
+    for ep in range(3):
+        want = whole.run_epoch(ep)[0]
+    want_state = _state(whole)
+    resumed = trainer()
+    assert resumed.restore(ckpt) == 2
+    assert resumed.run_epoch(2)[0] == want
+    _assert_match(_state(resumed), want_state, exact=True)
+    ckpt.close()
 
 
 @pytest.mark.gpu

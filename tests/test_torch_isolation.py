@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing it (and serving and training
 KHGRec, HGNN_HD3, LightGCN, BUIR, SGL, AutoCF, LRMRec, KGIN, KGAT,
-HKGRippleNet and MHCN on the CPU) pulls in neither JAX, flax, optax, nor the
-JAX package."""
+HKGRippleNet and MHCN on the CPU, and training SASRec through the CLI on
+written files) pulls in neither JAX, flax, optax, nor the JAX package."""
 
 import subprocess
 import sys
@@ -13,15 +13,18 @@ _PROBE = """
 import sys
 import hypergraph_diffusion_for_recommendation_tpu_torch as P
 from hypergraph_diffusion_for_recommendation_tpu_torch import (
-    core, data, eval, models, native, ops, serving_cli, train, weights)
+    cli, core, data, eval, models, native, ops, serving_cli, train, utils, weights)
 from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import (
     build, gather_fusion, segment_spmm)
 from hypergraph_diffusion_for_recommendation_tpu_torch.ops import dropout, losses, sampling
 from hypergraph_diffusion_for_recommendation_tpu_torch.train import optim, trainer
 from hypergraph_diffusion_for_recommendation_tpu_torch.models import (
     autocf, dhcf, dhcf_diffusion, hccf, hccf_diffusion, hd_family, hgcn, kgat, kgin_kgcl, khgrec,
-    ktup_ripplenet, layers, lightgcn, mf, sgl, sht, social_models, ssl_family)
-from hypergraph_diffusion_for_recommendation_tpu_torch.data import social
+    ktup_ripplenet, layers, lightgcn, mf, sasrec, sgl, sht, social_models, ssl_family)
+from hypergraph_diffusion_for_recommendation_tpu_torch.data import (
+    experiments, io, sequence, social)
+from hypergraph_diffusion_for_recommendation_tpu_torch.utils import (
+    checkpoint, conf, logging, results)
 from hypergraph_diffusion_for_recommendation_tpu_torch.bench import gather_fusion as probe, timing
 {extra}
 bad = sorted(m for m in sys.modules
@@ -124,6 +127,28 @@ for name in ('KGAT', 'HKGRippleNet', 'MHCN'):
 """
 
 
+# the CLI from written files: SASRec through cli.main on the CPU, the files
+# parsed by the native library, its artifacts written and a checkpoint saved
+_RUN_CLI = """
+import os, tempfile
+from hypergraph_diffusion_for_recommendation_tpu_torch import cli, native
+from hypergraph_diffusion_for_recommendation_tpu_torch.data import synthetic_dataset
+from hypergraph_diffusion_for_recommendation_tpu_torch.data.io import write_interactions
+root = tempfile.mkdtemp()
+train, test, _ = synthetic_dataset(n_users=60, n_items=80, mean_degree=10.0, seed=1)
+write_interactions(os.path.join(root, 'data', 'tiny', 'train.txt'), train)
+write_interactions(os.path.join(root, 'data', 'tiny', 'test.txt'), test)
+cfg = cli.build_config(cli.parse_args([
+    '--model=SASRec', '--dataset=tiny', '--data_dir=' + os.path.join(root, 'data'),
+    '--max_epoch=2', '--batch_size=32', '--embedding_size=16', '--item_ranking=10,20',
+    '--output_dir=' + os.path.join(root, 'results'), '--save_checkpoints', '--quiet']))
+result = cli.run(cfg.replace(log_dir=os.path.join(root, 'log'), eval_user_batch=64), True, 'cpu')
+assert len(result.history) == 2 and native.library_path().exists()
+run = os.path.join(root, 'results', 'SASRec', 'tiny')
+assert 'train_performance.csv' in os.listdir(os.path.join(run, os.listdir(run)[0]))
+"""
+
+
 def _probe(extra: str = ""):
     return subprocess.run([sys.executable, "-c", _PROBE.format(extra=extra)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -161,6 +186,12 @@ def test_adjacency_forms_training_runs_without_jax():
 
 def test_kg_and_social_training_runs_without_jax():
     proc = _probe(_RUN_KG_SOCIAL)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_cli_training_runs_without_jax():
+    proc = _probe(_RUN_CLI)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
 
