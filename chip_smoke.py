@@ -135,7 +135,7 @@ Phases, in order; any failure exits non-zero:
      for bit its eager step, with its times;
  18. KTUP, HKGRippleNet, MHCN and SEPT at the LastFM shape and MHCN at ML-1M
      density, width 64, bf16 operand, each built by `Recommender.build`
-     (the social models on `synthetic_social(inter, 5)`): the build times
+     (the social models given `synthetic_social(inter, 5)`): the build times
      (ripple sets, user-user matrices), each social matrix's shape, nnz and
      kernel, the encode and one step against the plain versions with their
      SpMM launches by kernel name (`REST`), serving, and the replayed step
@@ -156,7 +156,27 @@ Phases, in order; any failure exits non-zero:
      card: a fresh Trainer restores the checkpoint of a 2-epoch
      `fit(ckpt_every=1)` and its next epoch equals an uninterrupted run's third
      bit for bit (loss, parameters, Adam states, extras), for KHGRec and for
-     KGAT (two Adam instances, two step graphs).
+     KGAT (two Adam instances, two step graphs). The layout variables through
+     the CLI: a LightGCN epoch with HGDR_DEDUP=0 at ML-1M density launches
+     kernel 1 and not kernel 2, one with HGDR_DEDUP=1 at the LastFM shape
+     kernel 2 and not kernel 1; MHCN without social data is refused
+     (`python -m ...cli`, non-zero exit code).
+ 21. the KG-embedding trainer (`train/kg_embedding.py`): TransE, DistMult and
+     RealE at KGEConfig's defaults (dim 64, batch 2048, lr 0.001, 10
+     negatives, window 2, arity 6, sigmoid) on the KG CLI's default KG
+     (`generate_kg(2000, 16, seed=1)`: 3,985 triples, 2,128 entities) and on
+     the LastFM-shape KG (`generate_kg(17632, 16, seed=1)`: 34,829, 17,760):
+     the replayed step bit for bit the eager step after 1 and 8 steps, with
+     its wall, device time and idle share; KGE_EPOCHS epochs with finite
+     losses, triples a second; the evaluation's wall time and filtered
+     Measure, each of its ranks within its near ties of the CPU plain
+     evaluation's of the same tables (the entities whose float64 score lies
+     within KGE_TIE_RTOL of the row's scale of the true entity's); no SpMM
+     launched. Then the JAX slow tier's learning checks (RealE's full-entity
+     CE branch on `generate_kg(400, 8, 4, seed=2, max_triples_per_item=8)`,
+     RealE on arity-3 tuples: filtered Hit@10 above 0.15), and `python -m
+     ...kg_embedding_cli --model RealE --max_epoch 3 --test_by_arity` in a
+     process of its own (exit code 0).
 
 Each phase's seconds are printed as it ends (`[time]`), and all of them
 with the total before the result lines.
@@ -386,6 +406,20 @@ CLI_KHGREC = ["--model=KHGRec", "--hyper_dim=128", "--relation_dim=32", "--n_lay
 CLI_SASREC = ["--model=SASRec", "--embedding_size=50", "--n_layers=2", "--batch_size=128",
               "--drop_rate=0.5", "--lrate=0.001", "--max_epoch=2", "--experiment=cold_start",
               "--group_id=1", "--export_embeddings"]
+# phase 20's layout variables: (dataset, HGDR_DEDUP, the kernel that must launch, the one
+# that must not), each through one LightGCN epoch of the CLI
+CLI_LAYOUTS = (("ml1m", "0", "segment_spmm_rows", "segment_spmm_dedup"),
+               ("lastfm", "1", "segment_spmm_dedup", "segment_spmm_rows"))
+CLI_LIGHTGCN = ["--model=LightGCN", "--embedding_size=64", "--batch_size=2048", "--max_epoch=1"]
+# the KG-embedding phase: the KG CLI's default KG and the LastFM-shape KG
+# (`generate_kg` arguments), each model at KGEConfig's defaults, KGE_EPOCHS epochs
+KGE_KGS = {"cli": dict(n_items=2000, n_clusters=16, seed=1),
+           "lastfm": dict(n_items=17632, n_clusters=16, seed=1)}
+KGE_MODELS = ("TransE", "DistMult", "RealE")
+KGE_EPOCHS = 3
+# an entity whose float64 score lies within this share of the row's scale of the true
+# entity's is a near tie: a rank may differ between the card and the CPU by as many
+KGE_TIE_RTOL = 1e-6
 # the JAX package's artifact headers (utils/logging.py), at the CLI's top-N 10, 20, 40
 PERF_HEADER = "epoch,train_time,test_time,hit@40,precision@40,recall@40,ndcg@40"
 FINAL_HEADER = "topN,hit_ratio,precision,recall,ndcg"
@@ -2289,8 +2323,8 @@ def _expected_launches(products) -> dict:
 def phase_rest(lastfm, ml1m, card: str) -> list[dict]:
     """KTUP, HKGRippleNet, MHCN and SEPT at the LastFM shape, and MHCN at
     ML-1M density, at width 64 with the bf16 operand, each built by
-    `Recommender.build` (the social models on the synthetic trust network of
-    `synthetic_social(inter, 5)`): the host build times (ripple sets, the
+    `Recommender.build` (the social models given the synthetic trust network
+    of `synthetic_social(inter, 5)`): the host build times (ripple sets, the
     user-user matrices), each social matrix's shape, nnz and kernel, the
     encode and one step against the plain versions with their SpMM launches
     by kernel name (`REST`), serving, and the replayed step bit for bit its
@@ -2517,14 +2551,62 @@ def resume_check(tag: str, model: str, cfg_kw: dict, data, ckpt_dir: Path) -> di
                     f.stat().st_size for f in ckpt_dir.glob("ckpt_*.pt")))
 
 
-def phase_cli(lastfm, card: str) -> dict:
+def cli_layouts(root: Path, common: list, ml1m) -> dict:
+    """The layout variables through the CLI (`CLI_LAYOUTS`): with HGDR_DEDUP=0
+    a LightGCN epoch at ML-1M density (where `dedup_auto` picks dedup) must
+    launch kernel 1 and not kernel 2, with HGDR_DEDUP=1 one at the LastFM
+    shape (where it picks base) kernel 2 and not kernel 1, by the wrappers'
+    counts; then MHCN without social data must be refused by the CLI run as
+    a user runs it, with a non-zero exit code."""
+    import os
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch import cli
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data import io
+
+    io.write_interactions(str(root / "dataset" / "ml1m" / "train.txt"), ml1m[0])
+    io.write_interactions(str(root / "dataset" / "ml1m" / "test.txt"), ml1m[1])
+    out = {}
+    for dataset, dedup, want, other in CLI_LAYOUTS:
+        before = os.environ.get("HGDR_DEDUP")
+        os.environ["HGDR_DEDUP"] = dedup
+        _zero_spmm_launches()
+        try:
+            cli.main(CLI_LIGHTGCN + [f"--dataset={dataset}"] + common[1:])
+        finally:
+            if before is None:
+                del os.environ["HGDR_DEDUP"]
+            else:
+                os.environ["HGDR_DEDUP"] = before
+        launches = _spmm_launches()
+        log(f"[cli] HGDR_DEDUP={dedup} LightGCN on {dataset}: SpMM launches from Python "
+            f"{launches}")
+        if not launches.get(want) or launches.get(other):
+            raise AssertionError(f"cli: HGDR_DEDUP={dedup} on {dataset} launched {launches}, "
+                                 f"expected {want} and no {other}")
+        out[f"HGDR_DEDUP={dedup} {dataset}"] = launches
+    argv = [sys.executable, "-m", "hypergraph_diffusion_for_recommendation_tpu_torch.cli",
+            "--model=MHCN", "--max_epoch=1", "--dataset=lastfm"] + common[1:]
+    path = os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
+    proc = subprocess.run(argv, cwd=root, capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=path))
+    said = proc.stderr.strip().splitlines()[-1:] if proc.stderr.strip() else []
+    log(f"[cli] MHCN without social data: rc {proc.returncode}, {said}")
+    if proc.returncode == 0 or "MHCN requires social data" not in proc.stderr:
+        raise AssertionError(f"cli: MHCN without social data was not refused (rc "
+                             f"{proc.returncode})")
+    out["mhcn_without_social"] = dict(rc=proc.returncode, said=said)
+    return out
+
+
+def phase_cli(lastfm, ml1m, card: str) -> dict:
     """The CLI from files: the LastFM-shape split written in the reference
     layout (`<data_dir>/lastfm/train.txt`, `test.txt`, `processed_lastfm.kg`);
     `cli.main` for KHGRec (`CLI_KHGREC`: kernel 1 must launch; the JAX
     package's artifact headers) and SASRec (`CLI_SASREC`: no SpMM), each file
     parsed by the native library (the plain parser never called, and equal
-    to it); `serving_cli` over KHGRec's export; then resume on the card for
-    KHGRec and KGAT (`resume_check`)."""
+    to it); `serving_cli` over KHGRec's export; the layout variables and
+    MHCN's refusal (`cli_layouts`); then resume on the card for KHGRec and
+    KGAT (`resume_check`)."""
     import csv
     import os
     import shutil
@@ -2626,6 +2708,7 @@ def phase_cli(lastfm, card: str) -> dict:
         if not ok:
             raise AssertionError(f"cli: serving_cli gave rc {rc} and {len(rows)} rows")
         summary["serving_cli_s"] = round(serve_s, 3)
+        summary["layouts"] = cli_layouts(root, common, ml1m)
     finally:
         io.load_columns = real_load
         os.chdir(cwd)
@@ -2637,6 +2720,322 @@ def phase_cli(lastfm, card: str) -> dict:
                                       root / "ckpt_kgat")]
     log(f"[cli] {json.dumps(summary)}")
     return summary
+
+
+def kge_state(tr) -> dict:
+    """Every tensor a KG-embedding step writes: the tables and Adam's moments."""
+    out = {k: v.detach().clone() for k, v in tr.params.items()}
+    for k, p in tr.params.items():
+        for m in ("exp_avg", "exp_avg_sq"):
+            out[f"{k} {m}"] = tr.opt.state[p][m].clone()
+    return out
+
+
+def kge_graph_check(tag: str, tr, batches) -> dict:
+    """After the eager warm-up step: from one full state (`snapshot`), the
+    replayed steps against the eager steps after 1 and 8 steps, bit for bit;
+    then the replayed and the eager step's wall (CUDA events), device time
+    (profiler) and idle share. The state is restored at the end."""
+    import torch
+
+    def batch(s):
+        return tuple(t[s % tr.n_batches] for t in batches)
+
+    tr.train_step(batch(0))  # eager: fills Adam's state
+    snap = tr.snapshot()
+    runs = {}
+    for mode in ("replay", "eager"):
+        tr.restore(snap)
+        tr.graphs = mode == "replay"
+        runs[mode] = {}
+        for s in range(1, GRAPH_COMPARE_STEPS[-1] + 1):
+            tr.train_step(batch(s))
+            if s in GRAPH_COMPARE_STEPS:
+                torch.cuda.synchronize()
+                runs[mode][s] = kge_state(tr)
+    compared = {}
+    for s in GRAPH_COMPARE_STEPS:
+        diff = sorted(k for k in runs["eager"][s]
+                      if not torch.equal(runs["replay"][s][k], runs["eager"][s][k]))
+        compared[s] = diff
+        if diff:
+            raise AssertionError(f"kge {tag}: after {s} steps the replayed steps differ from "
+                                 f"the eager steps in {diff}")
+    row = {}
+    for mode in ("replay", "eager"):
+        tr.graphs = mode == "replay"
+        wall = cuda_ms(lambda: tr.train_step(batch(1)), iters=10, warmup=2)
+        dev, split = device_ms(lambda: tr.train_step(batch(1)), iters=10)
+        row[mode] = dict(wall_ms=round(wall, 4), device_ms=round(dev, 4),
+                         idle_share=round(max(0.0, 1.0 - dev / wall), 4),
+                         top_kernels={k[:60]: round(t, 4) for k, t in
+                                      sorted(split.items(), key=lambda kv: -kv[1])[:4]})
+    tr.graphs = True
+    tr.restore(snap)
+    log(f"[kge] {tag}: replay bit for bit the eager step after {list(GRAPH_COMPARE_STEPS)} "
+        f"steps; step replay wall {row['replay']['wall_ms']:.4f} ms, device "
+        f"{row['replay']['device_ms']:.4f}, idle {row['replay']['idle_share']:.4f} | eager wall "
+        f"{row['eager']['wall_ms']:.4f}, device {row['eager']['device_ms']:.4f}, idle "
+        f"{row['eager']['idle_share']:.4f}; replay's largest kernels "
+        f"{row['replay']['top_kernels']}")
+    return dict(compared_steps=list(GRAPH_COMPARE_STEPS), **row)
+
+
+def kge_events(tr, max_triples: int) -> dict:
+    """The evaluation's ranking events in the order `Measure.update_batch`
+    receives them, per setting: (test row, position) with position "t"/"h"
+    for a binary model and the entity slot j for RealE (each RealE event
+    twice: its arity's Measure, then the overall one)."""
+    if tr.cfg.model != "RealE":
+        n = len(tr.test[:max_triples])
+        raw, fil = [], []
+        for s in range(0, n, 128):
+            ks = range(s, min(s + 128, n))
+            raw += [(k, "t") for k in ks] + [(k, "h") for k in ks]
+            fil += [(k, side) for k in ks for side in ("t", "h")]
+        return {"raw": raw, "fil": fil}
+    test = tr.test_tup[:max_triples]
+    events = []
+    for s in range(0, len(test), 32):
+        valid = test[s:s + 32, 1:] >= 0
+        for j in range(tr.cfg.max_arity):
+            events += [(s + k, j) for k in range(len(valid)) if valid[k, j] for _ in range(2)]
+    return {"raw": events, "fil": events}
+
+
+def kge_close_counts(tr, events) -> list[int]:
+    """For each ranking event (`kge_events`): how many other entities score
+    within KGE_TIE_RTOL of the row's scale of the true entity, in float64 on
+    the card. A rank computed in float32 can move by at most that many."""
+    import torch
+
+    cfg = tr.cfg
+    ent = tr.params["ent"].detach().double()
+    rel = tr.params["rel"].detach().double()
+    A, nb, w = cfg.max_arity, cfg.dim // cfg.window_size, cfg.window_size
+    G = {}  # RealE: every entity's factor at a position, by position
+    out = []
+    for s in range(0, len(events), 32):
+        block = events[s:s + 32]
+        if cfg.model != "RealE":
+            rows_t = torch.as_tensor(tr.test[[k for k, _ in block]], device=ent.device)
+            tail = torch.as_tensor([pos == "t" for _, pos in block], device=ent.device)
+            e = torch.where(tail[:, None], ent[rows_t[:, 0]], ent[rows_t[:, 2]])
+            r = rel[rows_t[:, 1]]
+            true = torch.where(tail, rows_t[:, 2], rows_t[:, 0])
+            if cfg.model == "TransE":
+                x = torch.where(tail[:, None], e + r, e - r)
+                rows = -(x[:, None, :] - ent[None]).abs().sum(-1)
+            else:
+                rows = (e * r) @ ent.T
+        else:
+            rows, true = [], []
+            for k, pos in block:
+                tup = tr.test_tup[k]
+                q = rel[int(tup[0])].clone()
+                for j in range(A):
+                    if tup[1 + j] >= 0 and j != pos:
+                        q = q * torch.sigmoid(torch.roll(ent[int(tup[1 + j])], (j * cfg.dim) // A))
+                if pos not in G:
+                    G[pos] = torch.sigmoid(torch.roll(ent, (pos * cfg.dim) // A, dims=-1))
+                rows.append(torch.sigmoid((G[pos].reshape(-1, nb, w) * q.reshape(nb, w))
+                                          .sum(-1)).sum(-1))
+                true.append(int(tup[1 + pos]))
+            rows = torch.stack(rows)
+            true = torch.as_tensor(true, device=ent.device)
+        at = rows.gather(1, true[:, None])
+        band = KGE_TIE_RTOL * rows.abs().amax(1, keepdim=True)
+        out += ((rows - at).abs() <= band).sum(1).sub(1).tolist()
+    return out
+
+
+def kge_recorded_eval(tr, **kw):
+    """`tr.evaluate(**kw)`, with every rank its Measures receive, per setting."""
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import kg_embedding as K
+
+    seen = {"raw": [], "fil": []}
+    update = K.Measure.update_batch
+
+    def recording(self, ranks, setting):
+        seen[setting].extend(ranks.tolist())
+        return update(self, ranks, setting)
+
+    K.Measure.update_batch = recording
+    try:
+        return tr.evaluate(**kw), seen
+    finally:
+        K.Measure.update_batch = update
+
+
+def kge_run(tag: str, kg, model: str, card: str) -> dict:
+    """One model at KGEConfig's defaults on one KG: the graph check, KGE_EPOCHS
+    epochs (finite losses, triples a second), the evaluation on the card (its
+    wall time and filtered Measure) against the CPU plain evaluation of the
+    same tables: a rank may differ by no more than its near ties
+    (`kge_close_counts`), and with no difference the Measures are equal."""
+    import numpy as np
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train.kg_embedding import (
+        KGEConfig,
+        KGEmbeddingTrainer,
+    )
+
+    n_ent = int(max(kg[:, 0].max(), kg[:, 2].max())) + 1
+    n_rel = int(kg[:, 1].max()) + 1
+    cfg = KGEConfig(model=model)
+    t0 = time.time()
+    tr = KGEmbeddingTrainer(kg, n_ent, n_rel, cfg, device=DEVICE)
+    build_s = time.time() - t0
+    check = kge_graph_check(tag, tr, tr.epoch_batches(tr.draw()))
+    losses, epoch_s = [], []
+    for _ in range(KGE_EPOCHS):
+        t0 = time.time()
+        losses.append(tr.run_epoch())  # ends on the host: the mean loss
+        epoch_s.append(time.time() - t0)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"kge {tag}: non-finite losses {losses}")
+    t0 = time.time()
+    m, card_ranks = kge_recorded_eval(tr)
+    eval_s = time.time() - t0
+    cpu = KGEmbeddingTrainer(kg, n_ent, n_rel, cfg, device="cpu")
+    cpu.load_params({k: v.detach().cpu() for k, v in tr.params.items()})
+    t0 = time.time()
+    cpu_m, cpu_ranks = kge_recorded_eval(cpu)
+    cpu_eval_s = time.time() - t0
+    events = kge_events(tr, 2000)
+    differ = {s: [i for i, (a, b) in enumerate(zip(card_ranks[s], cpu_ranks[s])) if a != b]
+              for s in ("raw", "fil")}
+    if any(len(card_ranks[s]) != len(cpu_ranks[s]) or len(card_ranks[s]) != len(events[s])
+           for s in ("raw", "fil")):
+        raise AssertionError(f"kge {tag}: the card's and the CPU's evaluations hold different "
+                             f"event counts")
+    unexplained = []
+    for st in differ:
+        close = kge_close_counts(tr, [events[st][i] for i in differ[st]])
+        unexplained += [(st, i, card_ranks[st][i], cpu_ranks[st][i], c)
+                        for i, c in zip(differ[st], close)
+                        if abs(card_ranks[st][i] - cpu_ranks[st][i]) > c]
+    n_differ = sum(len(v) for v in differ.values())
+    if unexplained or (n_differ == 0 and vars(m) != vars(cpu_m)):
+        raise AssertionError(f"kge {tag}: the card's ranks differ from the CPU's by more than "
+                             f"their near ties at (setting, event, card, CPU, ties) "
+                             f"{unexplained[:10]}")
+    drift = {k: abs(getattr(m, k)["fil"] - getattr(cpu_m, k)["fil"])
+             for k in ("hit10", "mr", "mrr")}
+    triples_per_s = tr.train.shape[0] / min(epoch_s)
+    fil = {k: getattr(m, k)["fil"] for k in ("hit1", "hit3", "hit10", "mr", "mrr")}
+    log(f"[kge] {tag}: {tr.train.shape[0]} train triples, {n_ent} entities, {tr.n_batches} "
+        f"steps an epoch, losses {[round(x, 5) for x in losses]}, epoch {min(epoch_s):.4f} s "
+        f"({triples_per_s:,.0f} triples/s); evaluation {eval_s:.3f} s on the card, "
+        f"{cpu_eval_s:.3f} s on the CPU, {n_differ} of {2 * len(events['raw'])} rank events "
+        f"differ, each by no more than its near ties (filtered Measure's difference "
+        f"{drift}); filtered {fil}")
+    summary = dict(tag=tag, model=model, card=card, n_train=int(tr.train.shape[0]),
+                   n_entities=n_ent, steps_per_epoch=tr.n_batches, build_s=round(build_s, 3),
+                   losses=losses, epoch_s=[round(x, 4) for x in epoch_s],
+                   triples_per_s=round(triples_per_s, 1), eval_s=round(eval_s, 3),
+                   cpu_eval_s=round(cpu_eval_s, 3), rank_events=len(events["raw"]) * 2,
+                   near_tie_differences=n_differ, cpu_difference=drift, filtered=fil,
+                   step=check)
+    del tr, cpu
+    torch.cuda.empty_cache()
+    return summary
+
+
+def arity3_tuples(n_tuples: int = 3000, n_ent: int = 240, n_clusters: int = 8, A: int = 6):
+    """The JAX package's planted arity-3 tuples (tests/test_kg_embedding.py):
+    three entities of one cluster a tuple, relation 0 or 1, pad -1."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    cluster = rng.integers(0, n_clusters, n_ent)
+    members = [np.nonzero(cluster == c)[0] for c in range(n_clusters)]
+    rows = []
+    for _ in range(n_tuples):
+        c = rng.integers(0, n_clusters)
+        rows.append([rng.integers(0, 2)] + list(rng.choice(members[c], 3, replace=False))
+                    + [-1] * (A - 3))
+    return np.asarray(rows, np.int64), n_ent, 2
+
+
+def kge_learns() -> list[dict]:
+    """The JAX slow tier's learning checks on the card: RealE's full-entity CE
+    branch on `generate_kg(400, 8, 4, seed=2, max_triples_per_item=8)` (dim
+    32, lr 0.03, batch 512, 40 epochs) and RealE on the planted arity-3
+    tuples (30 epochs, by arity): filtered Hit@10 above 0.15, the filtered
+    MRR at least the raw one."""
+    import numpy as np
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data.synthetic import generate_kg
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train.kg_embedding import (
+        KGEConfig,
+        KGEmbeddingTrainer,
+    )
+
+    kg = generate_kg(n_items=400, n_clusters=8, n_attrs_per_cluster=4, seed=2,
+                     max_triples_per_item=8)[["h", "r", "t"]].to_numpy()
+    out = []
+    for tag, epochs, max_triples in (("RealE full CE", 40, 200), ("RealE arity 3", 30, 150)):
+        cfg = KGEConfig(model="RealE", dim=32, lrate=0.03, batch_size=512, max_epoch=epochs)
+        if tag.endswith("3"):
+            tuples, n_ent, n_rel = arity3_tuples()
+            tr = KGEmbeddingTrainer(None, n_ent, n_rel, cfg, tuples=tuples, device=DEVICE)
+        else:
+            n_ent, n_rel = int(max(kg[:, 0].max(), kg[:, 2].max())) + 1, int(kg[:, 1].max()) + 1
+            tr = KGEmbeddingTrainer(kg, n_ent, n_rel, cfg, device=DEVICE)
+        t0 = time.time()
+        losses = [tr.run_epoch() for _ in range(epochs)]
+        train_s = time.time() - t0
+        m = tr.evaluate(max_triples=max_triples, by_arity=tag.endswith("3"))
+        if tag.endswith("3"):
+            if set(m) != {3}:
+                raise AssertionError(f"kge {tag}: arities {sorted(m)}")
+            m = m[3]
+        ok = (np.isfinite(losses).all() and losses[-1] < losses[0] and m.hit10["fil"] > 0.15
+              and m.mrr["fil"] >= m.mrr["raw"] - 1e-9)
+        log(f"[kge] learns, {tag}: full CE {tr.full_ce}, {epochs} epochs in {train_s:.2f} s, "
+            f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, filtered Hit@10 {m.hit10['fil']:.4f}, "
+            f"MRR raw {m.mrr['raw']:.4f} filtered {m.mrr['fil']:.4f}")
+        if not ok:
+            raise AssertionError(f"kge {tag}: did not learn (loss {losses[0]} -> {losses[-1]}, "
+                                 f"hit@10 {m.hit10})")
+        out.append(dict(tag=tag, full_ce=tr.full_ce, epochs=epochs, train_s=round(train_s, 3),
+                        first_loss=losses[0], last_loss=losses[-1], hit10_fil=m.hit10["fil"],
+                        mrr_fil=m.mrr["fil"], mrr_raw=m.mrr["raw"]))
+    return out
+
+
+def phase_kge(card: str) -> dict:
+    """The KG-embedding trainer: TransE, DistMult and RealE at KGEConfig's
+    defaults on the KG CLI's default KG and on the LastFM-shape KG
+    (`kge_run`), no SpMM launched; the learning checks (`kge_learns`); then
+    the KG-embedding CLI as a user runs it, in a process of its own."""
+    import os
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data.synthetic import generate_kg
+
+    _zero_spmm_launches()
+    runs = []
+    for name, kw in KGE_KGS.items():
+        kg = generate_kg(**kw)[["h", "r", "t"]].to_numpy()
+        for model in KGE_MODELS:
+            runs.append(kge_run(f"{model}/{name}", kg, model, card))
+    if _spmm_launches():
+        raise AssertionError(f"kge: the KG embedding launched SpMM kernels {_spmm_launches()}")
+    learned = kge_learns()
+    argv = [sys.executable, "-m", "hypergraph_diffusion_for_recommendation_tpu_torch.kg_embedding_cli",
+            "--model", "RealE", "--max_epoch", "3", "--test_by_arity"]
+    t0 = time.time()
+    proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_s = time.time() - t0
+    lines = proc.stdout.strip().splitlines()
+    log(f"[kge] kg_embedding_cli RealE, 3 epochs: rc {proc.returncode} in {cli_s:.2f} s: {lines}")
+    if proc.returncode != 0 or not lines or not lines[0].startswith("fil: hit@1"):
+        raise AssertionError(f"kge: the KG-embedding CLI failed (rc {proc.returncode}): "
+                             f"{proc.stderr[-2000:]}")
+    return dict(runs=runs, learns=learned, cli=dict(rc=proc.returncode, s=round(cli_s, 2),
+                                                    lines=lines))
 
 
 def main() -> int:
@@ -2726,12 +3125,13 @@ def main() -> int:
                  graphs["ml1m"]["data"], card)
     sequential = [s for shape in ("lastfm", "ml1m") for s in timed(
         f"19 SASRec, CL4SRec {shape}", phase_sequential, shape, graphs[shape]["data"], card)]
-    cli_run = timed("20 CLI", phase_cli, lastfm, card)
+    cli_run = timed("20 CLI", phase_cli, lastfm, graphs["ml1m"]["data"], card)
+    kge = timed("21 KG embedding", phase_kge, card)
     (OUT_DIR / "summary.json").write_text(json.dumps(dict(
         kernels=rows, slices=summaries, training=trains, hd=hd, hd_variants=variants,
         prop_cache=caches, family=family, lightgcn=lightgcn, zoo=zoo, joint=joint, sgl=sgl,
         adjacency=adjacency, kgat=kgat, rest=rest, sequential=sequential, cli=cli_run,
-        seconds=seconds), indent=1))
+        kge=kge, seconds=seconds), indent=1))
     log(f"[time] per phase: {json.dumps(seconds)}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -170,39 +170,6 @@ def extract_overrides(args: argparse.Namespace) -> dict:
     return overrides
 
 
-def extract_overrides(args: argparse.Namespace) -> dict:
-    overrides = {}
-    for key in (
-        "experiment", "group_id", "missing_pct", "noise_pct", "dataset", "data_dir",
-        "seed", "alpha", "lrate", "max_epoch", "batch_size", "hyperedge_num",
-        "batch_size_kg", "n_layers", "embedding_size", "input_dim", "relation_dim",
-        "hyper_dim", "lr_decay", "weight_decay", "reg", "reg_kg", "p", "drop_rate",
-        "nheads", "temp", "cl_rate", "mode", "aug_type", "laplacian_type",
-        "aggregation_type", "early_stopping_steps", "early_stop_smooth",
-        "early_stop_patience_scale", "evaluate_every", "prop_cache_steps",
-        "sht_reg",
-        "mesh_data", "mesh_model", "shard_graph", "gather_layout", "sampler",
-        "output_dir", "save_checkpoints", "resume",
-    ):
-        v = getattr(args, key)
-        if v is not None:
-            overrides[key] = v
-    if args.export_embeddings:
-        overrides["export_embeddings"] = True
-    overrides["item_ranking"] = tuple(int(x) for x in args.item_ranking.split(","))
-    if args.conv_dim_list:
-        overrides["conv_dim_list"] = tuple(json.loads(args.conv_dim_list))
-    if args.mess_dropout:
-        overrides["mess_dropout"] = tuple(json.loads(args.mess_dropout))
-    return overrides
-
-
-def build_config(args: argparse.Namespace):
-    from .core.config import make_config
-
-    return make_config(args.model, **extract_overrides(args))
-
-
 def build_config(args: argparse.Namespace):
     from .core.config import make_config
 

@@ -3,8 +3,11 @@ from .device import resolve_device
 from .types import (
     SparseCOO,
     from_edges,
+    from_scipy,
     pad_to_multiple,
     padded_rows_from_lists,
+    to_scipy,
+    transpose_coo,
     with_new_vals,
 )
 
@@ -15,7 +18,10 @@ __all__ = [
     "resolve_device",
     "SparseCOO",
     "from_edges",
+    "from_scipy",
     "pad_to_multiple",
     "padded_rows_from_lists",
+    "to_scipy",
+    "transpose_coo",
     "with_new_vals",
 ]

@@ -104,6 +104,29 @@ def from_edges(
     )
 
 
+def from_scipy(mat, device: torch.device | str | None = None, pad_multiple: int = 8,
+               dtype=np.float32) -> SparseCOO:
+    """Convert a scipy sparse matrix to row-sorted padded SparseCOO on
+    `device` (the GPU unless the caller asks for the CPU)."""
+    coo = mat.tocoo()
+    return from_edges(coo.row, coo.col, coo.data, mat.shape, device, pad_multiple, dtype)
+
+
+def to_scipy(sp: SparseCOO):
+    """Back to a scipy COO matrix on the host, the pads dropped."""
+    import scipy.sparse as sps
+
+    rows, cols, vals = (t[: sp.nnz].cpu().numpy() for t in (sp.rows, sp.cols, sp.vals))
+    return sps.coo_matrix((vals, (rows, cols)), shape=sp.shape)
+
+
+def transpose_coo(sp: SparseCOO, pad_multiple: int = 8) -> SparseCOO:
+    """Host-side transpose (re-sorted by the new row), on sp's device.
+    Init-time only."""
+    rows, cols, vals = (t[: sp.nnz].cpu().numpy() for t in (sp.rows, sp.cols, sp.vals))
+    return from_edges(cols, rows, vals, (sp.ncols, sp.nrows), sp.rows.device, pad_multiple)
+
+
 def padded_rows_from_lists(
     lists: list[np.ndarray] | list[list[int]],
     fill: int,

@@ -14,14 +14,17 @@ module-level switches, read when a layout is packed:
   * `bf16` selects the bf16 gathered operand (`PALLAS_BF16`);
   * `gather_layout` picks the layout (`PALLAS_DEDUP`, `PALLAS_INT8`), as
     the JAX CLI maps `Config.gather_layout` onto them (cli.py:225-237):
-    "auto" picks base or dedup per matrix with `dedup_auto`, "base" and
-    "dedup" force one, "int8" and "dedup_int8" force base or dedup and
-    set `BlockedCOO.int8`.
+    "base" and "dedup" force one, "int8" and "dedup_int8" force base or
+    dedup and set `BlockedCOO.int8`; under "auto" the environment decides,
+    read when the layout is packed: `HGDR_DEDUP=0` or `1` forces base or
+    dedup, unset or any other value picks per matrix with `dedup_auto`,
+    and `HGDR_INT8=1` sets `BlockedCOO.int8`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -40,8 +43,9 @@ from .knowledge import KnowledgeData
 # (nnz plus at most one block of padding per window) far below 2^31
 PALLAS_MAX_NNZ = 64_000_000
 # max bytes for a padded membership table before sampling uses the O(nnz)
-# CSR binary-search form (the JAX package's default)
-PAD_TABLE_BUDGET = 256 * 1024 * 1024
+# CSR binary-search form (both exact); HGDR_PAD_TABLE_BUDGET sets it at
+# import, as in the JAX package
+PAD_TABLE_BUDGET = int(os.environ.get("HGDR_PAD_TABLE_BUDGET", 256 * 1024 * 1024))
 GATHER_LAYOUTS = ("auto", "base", "dedup", "int8", "dedup_int8")
 
 
@@ -118,7 +122,10 @@ def dedup_auto(h_rows, h_cols, shape, row_block: int, threshold: float = 4.0) ->
 def pick_layout(gather_layout: str, h_rows, h_cols, shape) -> tuple[bool, bool]:
     """(dedup, int8) for one matrix under `gather_layout` (module docstring)."""
     if gather_layout == "auto":
-        return dedup_auto(h_rows, h_cols, shape, ROW_BLOCK), False
+        force = os.environ.get("HGDR_DEDUP", "auto")
+        dedup = (force == "1" if force in ("0", "1")
+                 else dedup_auto(h_rows, h_cols, shape, ROW_BLOCK))
+        return dedup, os.environ.get("HGDR_INT8") == "1"
     return gather_layout.startswith("dedup"), gather_layout.endswith("int8")
 
 

@@ -39,6 +39,43 @@ class KnowledgeData:
     kg_interaction_mat: sp.csr_matrix = field(repr=False)  # E x E
     norm_kg_adj: sp.csr_matrix = field(repr=False)
 
+    def adjacency_dict(self) -> dict[int, sp.csr_matrix]:
+        """Per-relation E x E adjacency (reference
+        Knowledge.create_adjacency_dict, data/knowledge.py:159-166).
+        KGAT consumes only the KEYS (its relation list, KGAT.py:132);
+        the matrices are exposed for API completeness."""
+        out: dict[int, sp.csr_matrix] = {}
+        for rel in np.unique(self.r):
+            m = self.r == rel
+            ones = np.ones(int(m.sum()), np.float32)
+            out[int(rel)] = sp.csr_matrix(
+                (ones, (self.h[m], self.t[m])),
+                shape=(self.n_entities, self.n_entities),
+                dtype=np.float32,
+            )
+        return out
+
+    def laplacian_dict(self, laplacian_type: str = "random-walk") -> dict[int, sp.csr_matrix]:
+        """Per-relation normalised laplacians (reference
+        Knowledge.create_laplacian_dict, data/knowledge.py:168-196):
+        'random-walk' D^-1 A or 'symmetric' D^-1/2 A D^-1/2."""
+        out: dict[int, sp.csr_matrix] = {}
+        for rel, adj in self.adjacency_dict().items():
+            deg = np.asarray(adj.sum(axis=1)).flatten()
+            with np.errstate(divide="ignore"):
+                if laplacian_type == "symmetric":
+                    d = np.power(deg, -0.5)
+                    d[np.isinf(d)] = 0.0
+                    di = sp.diags(d)
+                    out[rel] = (di @ adj @ di).tocsr()
+                elif laplacian_type == "random-walk":
+                    d = np.power(deg, -1.0)
+                    d[np.isinf(d)] = 0.0
+                    out[rel] = (sp.diags(d) @ adj).tocsr()
+                else:
+                    raise ValueError(f"unknown laplacian_type {laplacian_type!r}")
+        return out
+
     def head_tail_lists(self) -> list[np.ndarray]:
         """Per-head true-tail lists (train_kg_dict equivalent) for
         negative-tail rejection (util/sampler.py:50-57)."""

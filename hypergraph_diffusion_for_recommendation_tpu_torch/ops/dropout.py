@@ -11,14 +11,17 @@ two uint32 words, as host integers or as an int64 tensor on the device
 be the same key at every replay); `epoch_key_words` draws an epoch's
 keys at once.
 `feature_dropout` is flax's `nn.Dropout` on activations, drawn from an
-explicit `torch.Generator`. `drop_edges` and the node-dropout helpers come
-with the model zoo.
+explicit `torch.Generator`; `drop_edges`, `node_dropout_mask` and
+`drop_edges_by_nodes` draw their Bernoulli masks from one too
+(`bernoulli_mask`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..core.types import SparseCOO, with_new_vals
 
 _M32 = 0xFFFFFFFF
 
@@ -70,6 +73,48 @@ def feature_dropout(x: torch.Tensor, rate: float, generator: torch.Generator | N
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, 0.0)
+
+
+def bernoulli_mask(generator: torch.Generator | None, p: float, shape,
+                   device: torch.device | str) -> torch.Tensor:
+    """A boolean mask, each element True with probability p (the JAX
+    `jax.random.bernoulli`), drawn from `generator` on `device`."""
+    return torch.rand(shape, generator=generator, device=device) < p
+
+
+def drop_edges(generator: torch.Generator | None, adj: SparseCOO,
+               keep_rate: float) -> SparseCOO:
+    """Bernoulli(keep_rate) mask on the edge values, survivors rescaled by
+    1/keep_rate; keep_rate >= 1 returns adj unchanged (the reference's
+    `if keepRate == 1.0` early-out)."""
+    if keep_rate >= 1.0:
+        return adj
+    mask = bernoulli_mask(generator, keep_rate, adj.vals.shape, adj.vals.device)
+    # divide by a device tensor: a CUDA division by a host scalar multiplies
+    # by its reciprocal, which can differ in the last bit
+    keep = torch.full((), keep_rate, dtype=adj.vals.dtype, device=adj.vals.device)
+    return with_new_vals(adj, torch.where(mask, adj.vals / keep, 0.0))
+
+
+def node_dropout_mask(generator: torch.Generator | None, n_nodes: int, drop_rate: float,
+                      device: torch.device | str = "cpu") -> torch.Tensor:
+    """Boolean keep-mask over nodes (GraphAugmentor.node_dropout,
+    data/augmentor.py:11-25)."""
+    return bernoulli_mask(generator, 1.0 - drop_rate, (n_nodes,), device)
+
+
+def drop_edges_by_nodes(generator: torch.Generator | None, adj: SparseCOO,
+                        drop_rate: float) -> SparseCOO:
+    """Node-dropout view of a graph: every edge incident to a dropped row or
+    column node is zeroed, without rescaling (data/augmentor.py:11-25)."""
+    if drop_rate <= 0.0:
+        return adj
+    dev = adj.vals.device
+    keep_rows = node_dropout_mask(generator, adj.nrows, drop_rate, dev)
+    keep_cols = node_dropout_mask(generator, adj.ncols, drop_rate, dev)
+    rows_ok = keep_rows[adj.rows.long().clamp(0, adj.nrows - 1)]
+    cols_ok = keep_cols[adj.cols.long().clamp(0, adj.ncols - 1)]
+    return with_new_vals(adj, torch.where(rows_ok & cols_ok, adj.vals, 0.0))
 
 
 def key_words(generator: torch.Generator) -> tuple[int, int]:

@@ -124,6 +124,40 @@ def epoch_pairwise_batches(generator: torch.Generator, edge_users: torch.Tensor,
     return users, pos, neg
 
 
+def pointwise_layout(idx: torch.Tensor, negs: torch.Tensor, edge_users: torch.Tensor,
+                     edge_items: torch.Tensor, batch_size: int):
+    """The pointwise batches of one epoch from its draws: `idx` [total] the
+    wrapped permutation of the edges, `negs` [total, n_negs] the negatives
+    of each drawn edge. Each row is the positive then its negatives, labels
+    1 then 0; returns (users, items, labels), each [n_batches,
+    B * (1 + n_negs)]."""
+    total, n_negs = negs.shape
+    u = edge_users[idx]
+    i = edge_items[idx]
+    users = torch.cat([u[:, None], u[:, None].expand(total, n_negs)], dim=1)
+    items = torch.cat([i[:, None], negs.to(i.dtype)], dim=1)
+    labels = torch.cat([torch.ones((total, 1), device=u.device),
+                        torch.zeros((total, n_negs), device=u.device)], dim=1)
+    n_batches, bw = total // batch_size, batch_size * (1 + n_negs)
+    return users.reshape(n_batches, bw), items.reshape(n_batches, bw), labels.reshape(n_batches, bw)
+
+
+def epoch_pointwise_batches(generator: torch.Generator, edge_users: torch.Tensor,
+                            edge_items: torch.Tensor, rated, n_items: int, batch_size: int,
+                            n_negs: int = 4, rounds: int = 8):
+    """Pointwise batches: 1 positive + n_negs negatives, labels 1/0
+    (util/sampler.py:266-290), over a permutation of the edges cut into
+    ceil(n / B) batches with the tail wrapped, as `epoch_pairwise_batches`.
+    Returns (users, items, labels), each [n_batches, B * (1 + n_negs)]."""
+    n = edge_users.shape[0]
+    total = -(-n // batch_size) * batch_size
+    perm = torch.randperm(n, generator=generator, device=edge_users.device)
+    idx = perm[torch.arange(total, device=perm.device) % n]
+    users = edge_users[idx].repeat_interleave(n_negs)
+    negs = sample_negatives(generator, users, rated, n_items, rounds).reshape(total, n_negs)
+    return pointwise_layout(idx, negs, edge_users, edge_items, batch_size)
+
+
 def epoch_kg_batches(generator: torch.Generator, heads: torch.Tensor, relations: torch.Tensor,
                      tails: torch.Tensor, head_tails, n_entities: int, n_batches: int,
                      batch_size_kg: int, rounds: int = 8):

@@ -78,7 +78,8 @@ def scatter_sum_hubs(values: torch.Tensor, segment_ids: torch.Tensor,
 
 
 class _GatherRows(torch.autograd.Function):
-    """x[ids] whose backward sums through `_chunked_sum`."""
+    """x[ids] for ids of any shape, whose backward sums through
+    `_chunked_sum` over the flattened ids."""
 
     @staticmethod
     def forward(ctx, x, ids):
@@ -89,11 +90,12 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return _chunked_sum(g, ids, ctx.n), None
+        flat = ids.reshape(-1)
+        return _chunked_sum(g.reshape((flat.numel(),) + g.shape[ids.dim():]), flat, ctx.n), None
 
 
 def gather_rows_hubs(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """x[ids] (ids in range) for ids with long runs of one id: on the card
+    """x[ids] (ids in range, of any shape) for ids with long runs of one id: on the card
     the backward, a sum into x's rows, goes through `_chunked_sum` instead
     of the index backward's `index_put_`; on the CPU plain indexing."""
     if x.is_cuda and torch.is_grad_enabled() and x.requires_grad:
@@ -124,6 +126,21 @@ def spmm(a: SparseCOO, x: torch.Tensor) -> torch.Tensor:
                          f"got X on {x.device}")
     gathered = x[a.cols.long()] * a.vals[:, None].to(x.dtype)
     return scatter_sum(gathered, a.rows, a.nrows)
+
+
+def spmm_t(a: SparseCOO, x: torch.Tensor) -> torch.Tensor:
+    """A.T @ X without the transpose's structure: [m, d] from [n, d]. The
+    segment ids (a.cols) are not sorted and the pads all add (zeros) into
+    column 0, so the sum goes through `scatter_sum_hubs`: in one fixed
+    order, which repeats bit for bit on the card. Models that apply A.T
+    repeatedly carry the transposed matrix instead (an AdjPair's `bwd`)."""
+    gathered = x[a.rows.long().clamp(0, a.nrows - 1)] * a.vals[:, None].to(x.dtype)
+    return scatter_sum_hubs(gathered, a.cols, a.ncols)
+
+
+def sp_dense_left(x: torch.Tensor, a: SparseCOO) -> torch.Tensor:
+    """X @ A for dense X: [d, n] x [n, m] -> [d, m], as (A.T @ X.T).T."""
+    return spmm_t(a, x.T).T
 
 
 class _SpmmPair(torch.autograd.Function):

@@ -14,19 +14,29 @@ near-ties.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 NEG_INF = -1e9  # reference masks rated items with -10e8 (base/main_recommender.py:88)
 
 
-def exact_scores(user_rows: torch.Tensor, item_emb: torch.Tensor) -> torch.Tensor:
-    """user_rows @ item_emb.T in full float32: [B, d] x [I, d] -> [B, I]."""
+@contextlib.contextmanager
+def exact_f32():
+    """Matmuls in full float32 inside the block (TF32 off), whatever the
+    process set."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return user_rows.float() @ item_emb.float().T
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def exact_scores(user_rows: torch.Tensor, item_emb: torch.Tensor) -> torch.Tensor:
+    """user_rows @ item_emb.T in full float32: [B, d] x [I, d] -> [B, I]."""
+    with exact_f32():
+        return user_rows.float() @ item_emb.float().T
 
 
 def mask_rated(scores: torch.Tensor, rated_pad: torch.Tensor) -> torch.Tensor:

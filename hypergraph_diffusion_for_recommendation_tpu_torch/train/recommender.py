@@ -16,6 +16,8 @@ or, to serve given weights:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -25,8 +27,9 @@ from ..core.device import resolve_device
 
 class Recommender:
     def __init__(self, cfg: Config, device: torch.device | str | None = None, social=None):
-        """`social`: a `data.social.SocialData` for the social models (MHCN,
-        SEPT); without it `build` gives them a synthetic trust network."""
+        """`social`: a `data.social.SocialData`, which the social models
+        (MHCN, SEPT) require: without it `build` refuses them, as the JAX
+        package does."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.social = social
@@ -37,6 +40,15 @@ class Recommender:
         self.user_emb = self.item_emb = None
         self._encoder = None  # the encode's CUDA graph, over the current extras
 
+    @classmethod
+    def from_conf(cls, conf_path: str, device: torch.device | str | None = None,
+                  social=None, **overrides) -> "Recommender":
+        """From a reference-format .conf file (`utils.conf.config_from_conf`;
+        `overrides` win over the file's values)."""
+        from ..utils.conf import config_from_conf
+
+        return cls(config_from_conf(conf_path, **overrides), device, social=social)
+
     # -- lifecycle ------------------------------------------------------
     def build(self, data=None) -> None:
         """Build the interaction data (and, with `cfg.use_knowledge`, the
@@ -44,20 +56,16 @@ class Recommender:
         (train, test, kg_df) triple, kg_df None or ignored for a model
         without knowledge; None resolves the configured dataset and
         experiment (`cli.load_dataset`: the synthetic dataset, or the files
-        under `cfg.data_dir`). A social model given no social data gets the
-        synthetic trust network of `synthetic_social(inter, n_per_user=5)`."""
-        import inspect
-
+        under `cfg.data_dir`). A social model given no social data raises
+        ValueError (`build_model`)."""
         from ..cli import load_dataset
         from ..data import (
             build_cf_device_data,
             build_interaction,
             build_kg_device_data,
             build_knowledge,
-            build_social,
-            synthetic_social,
         )
-        from ..models import MODEL_REGISTRY, build_model, model_data_needs
+        from ..models import build_model, model_data_needs
 
         cfg = self.cfg
         train, test, kg_df = load_dataset(cfg) if data is None else data
@@ -73,11 +81,7 @@ class Recommender:
         if cfg.use_knowledge and kg_df is not None:
             self.kg = build_knowledge(kg_df, self.inter)
             kg_dev = build_kg_device_data(self.kg, self.device, **layout)
-        social = self.social
-        make = MODEL_REGISTRY.get(cfg.model)
-        if social is None and make and "social" in inspect.signature(make).parameters:
-            social = build_social(synthetic_social(self.inter, n_per_user=5), self.inter)
-        self.bundle = build_model(cfg, self.cf_dev, kg_dev, social=social)
+        self.bundle = build_model(cfg, self.cf_dev, kg_dev, social=self.social)
         self._encoder = None
 
     def init_weights(self, seed: int) -> None:
@@ -175,3 +179,27 @@ class Recommender:
             rated_pad=self.cf_dev.rated_pad,
             meta={"model": self.cfg.model, "dataset": self.cfg.dataset},
         )
+
+    def dump_recommendations(self, path: str | None = None, k: int | None = None) -> str:
+        """The `<Model>-top-N items.txt` artefact (base/graph_recommender.py:
+        94-118): each test user's top-k unrated items with their scores, a
+        star on each test hit; under the run directory unless `path` is
+        given."""
+        from ..ops.topk import exact_scores, masked_topk
+        from ..utils.logging import dump_recommendations, run_dir
+
+        cfg = self.cfg
+        k = k or cfg.max_n
+        path = path or os.path.join(run_dir(cfg), f"{cfg.model}-top-{k}items.txt")
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        ed = self.cf_dev.eval_data
+        users = ed.test_users[: ed.n_test_users].long()
+        scores = exact_scores(self.user_emb[users], self.item_emb)
+        vals, ids = masked_topk(scores, self.cf_dev.rated_pad[users], k)
+        ids_np = ids.cpu().numpy()
+        test_pos = ed.test_pos_pad[: ed.n_test_users].cpu().numpy()
+        hits = (ids_np[:, :, None] == test_pos[:, None, :]).any(-1)
+        raw_users = [int(self.inter.id2user[u]) for u in users.cpu().numpy()]
+        dump_recommendations(path, raw_users, self.inter.id2item, ids_np, vals.cpu().numpy(),
+                             hits)
+        return path

@@ -208,3 +208,13 @@ def params_from_jax(params_np: dict, device: torch.device | str | None = None
     `relation_mat`) and the social models (MHCN's `channel_att`, SEPT's
     tables)."""
     return _flax_tree_to_torch(params_np, "", resolve_device(device))
+
+
+def kge_params_from_jax(params_np: dict, device: torch.device | str | None = None
+                        ) -> dict[str, torch.Tensor]:
+    """The JAX `KGEmbeddingTrainer.params` ({"ent": [E, d], "rel": [R, d]},
+    as numpy arrays) -> the same tables as tensors on `device` (the GPU
+    unless the caller asks for the CPU), for `KGEmbeddingTrainer.load_params`."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(params_np[k], np.float32), device=dev)
+            for k in ("ent", "rel")}

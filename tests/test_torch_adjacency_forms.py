@@ -247,3 +247,19 @@ def test_hub_gather_backward_matches_indexing():
     # on the CPU the hub-safe forms are the plain ones
     assert torch.equal(tsp.gather_rows_hubs(x, ids), x[ids])
     assert torch.equal(tsp.scatter_sum_hubs(w, ids, 20), tsp.scatter_sum(w, ids, 20))
+
+
+def test_hub_gather_takes_any_id_shape():
+    # [B, L] ids, as the JAX `x[ids]` takes them (SASRec's windows, the KG
+    # embedding's [B, A] tuples), through the card's autograd Function run
+    # here: the value and the gradient of plain indexing, bit for bit
+    rng = np.random.default_rng(14)
+    ids = torch.as_tensor(rng.integers(0, 20, (16, 12)))
+    x = torch.as_tensor(rng.standard_normal((20, 8)).astype(np.float32))
+    w = torch.as_tensor(rng.standard_normal((16, 12, 8)).astype(np.float32))
+    xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    out = tsp._GatherRows.apply(xa, ids)
+    assert torch.equal(out, xb[ids])
+    (out * w).sum().backward()
+    (xb[ids] * w).sum().backward()
+    assert torch.equal(xa.grad, xb.grad)

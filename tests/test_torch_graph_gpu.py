@@ -232,6 +232,33 @@ def test_relation_gather_matches_plain_and_repeats(cuda):
 
 
 @pytest.mark.gpu
+def test_hub_gather_takes_any_id_shape_on_the_card(cuda):
+    """`gather_rows_hubs` under autograd on [B, L] ids (one id repeated past
+    the 512-element runs): the values of plain indexing, a backward within
+    1e-5 of the f64 one, bit for bit from run to run."""
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.sparse import gather_rows_hubs
+
+    gen = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn(300, 32, device=cuda, generator=gen)
+    ids = torch.randint(0, 300, (64, 50), device=cuda, generator=gen)
+    ids[:40] = 7  # a run of 2,000 equal ids
+    g = torch.randn(64, 50, 32, device=cuda, generator=gen)
+
+    def grad(fn, t):
+        t = t.clone().requires_grad_(True)
+        out = fn(t, ids)
+        (dt,) = torch.autograd.grad((out * g.to(t.dtype)).sum(), t)
+        return out.detach(), dt
+
+    out, dx = grad(gather_rows_hubs, x)
+    again = grad(gather_rows_hubs, x)
+    _, ref_dx = grad(lambda t, i: t[i], x.double())
+    assert torch.equal(out, x[ids])
+    assert torch.equal(out, again[0]) and torch.equal(dx, again[1])
+    assert float((dx.double() - ref_dx).abs().max()) <= 1e-5 * float(ref_dx.abs().max())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("model", ["SASRec", "CL4SRec"])
 def test_sequence_step_graph_replays_its_eager_step(cuda, model):
     """SASRec's and CL4SRec's step graph (fixed [B, L] inputs; dropout and
@@ -266,6 +293,40 @@ def test_sequence_step_graph_replays_its_eager_step(cuda, model):
     u, i = tg.encode()
     ue, ie = rec.bundle.encode_eval(tg.extras)
     assert torch.equal(u, ue) and torch.equal(i, ie)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["TransE", "DistMult", "RealE"])
+def test_kge_step_graph_replays_its_eager_step(cuda, model):
+    """The KG-embedding trainer's replayed step against its eager step from
+    one full state (`snapshot`: tables, Adam's state, the generator), after 1
+    and 5 steps, bit for bit; then an epoch through the graph."""
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data.synthetic import generate_kg
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train.kg_embedding import (
+        KGEConfig,
+        KGEmbeddingTrainer,
+    )
+
+    kg = generate_kg(n_items=600, n_clusters=8, seed=1)[["h", "r", "t"]].to_numpy()
+    tr = KGEmbeddingTrainer(kg, int(kg[:, [0, 2]].max()) + 1, int(kg[:, 1].max()) + 1,
+                            KGEConfig(model=model, dim=32, batch_size=256), device=cuda)
+    batches = tr.epoch_batches(tr.draw())
+    tr.train_step(tuple(t[0] for t in batches))  # eager: fills Adam's state
+    snap = tr.snapshot()
+    states = {}
+    for graphs in (True, False):
+        tr.restore(snap)
+        tr.graphs = graphs
+        for s in range(1, 6):
+            tr.train_step(tuple(t[s % tr.n_batches] for t in batches))
+            if s in (1, 5):
+                states[graphs, s] = [v.detach().clone() for v in tr.params.values()] + [
+                    st[k].clone() for st in tr.opt.state.values()
+                    for k in ("exp_avg", "exp_avg_sq")]
+    for s in (1, 5):
+        assert all(torch.equal(a, b) for a, b in zip(states[True, s], states[False, s])), s
+    tr.graphs = True
+    assert torch.isfinite(torch.tensor(tr.run_epoch()))
 
 
 @pytest.mark.gpu

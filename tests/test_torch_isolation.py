@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing it (and serving and training
 KHGRec, HGNN_HD3, LightGCN, BUIR, SGL, AutoCF, LRMRec, KGIN, KGAT,
-HKGRippleNet and MHCN on the CPU, and training SASRec through the CLI on
-written files) pulls in neither JAX, flax, optax, nor the JAX package."""
+HKGRippleNet and MHCN on the CPU, training SASRec through the CLI on
+written files, and training RealE through the KG-embedding CLI) pulls in
+neither JAX, flax, optax, nor the JAX package."""
 
 import subprocess
 import sys
@@ -13,16 +14,18 @@ _PROBE = """
 import sys
 import hypergraph_diffusion_for_recommendation_tpu_torch as P
 from hypergraph_diffusion_for_recommendation_tpu_torch import (
-    cli, core, data, eval, models, native, ops, serving_cli, train, utils, weights)
+    cli, core, data, eval, kg_embedding_cli, models, native, ops, serving_cli, train, utils,
+    weights)
 from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import (
     build, gather_fusion, segment_spmm)
 from hypergraph_diffusion_for_recommendation_tpu_torch.ops import dropout, losses, sampling
-from hypergraph_diffusion_for_recommendation_tpu_torch.train import optim, trainer
+from hypergraph_diffusion_for_recommendation_tpu_torch.train import (
+    graphs, kg_embedding, optim, recommender, trainer)
 from hypergraph_diffusion_for_recommendation_tpu_torch.models import (
     autocf, dhcf, dhcf_diffusion, hccf, hccf_diffusion, hd_family, hgcn, kgat, kgin_kgcl, khgrec,
     ktup_ripplenet, layers, lightgcn, mf, sasrec, sgl, sht, social_models, ssl_family)
 from hypergraph_diffusion_for_recommendation_tpu_torch.data import (
-    experiments, io, sequence, social)
+    experiments, io, knowledge, normalize, sequence, social, synthetic)
 from hypergraph_diffusion_for_recommendation_tpu_torch.utils import (
     checkpoint, conf, logging, results)
 from hypergraph_diffusion_for_recommendation_tpu_torch.bench import gather_fusion as probe, timing
@@ -106,17 +109,21 @@ for name in ('SGL', 'AutoCF', 'LRMRec', 'KGIN'):
 
 
 # the KG recommenders and the social models: KGAT (the alternating epoch and its
-# refresh), HKGRippleNet (its host ripple sets) and MHCN (a synthetic trust
-# network built by Recommender.build) for one epoch
+# refresh), HKGRippleNet (its host ripple sets) and MHCN (on the synthetic trust
+# network, passed explicitly) for one epoch
 _RUN_KG_SOCIAL = """
 from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
-from hypergraph_diffusion_for_recommendation_tpu_torch.data import synthetic_dataset
+from hypergraph_diffusion_for_recommendation_tpu_torch.data import (
+    build_interaction, build_social, synthetic_dataset, synthetic_social)
 from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender
 data = synthetic_dataset(n_users=60, n_items=80, mean_degree=10.0, seed=1, with_kg=True)
+inter = build_interaction(data[0], data[1])
+social = build_social(synthetic_social(inter, n_per_user=5), inter)
 for name in ('KGAT', 'HKGRippleNet', 'MHCN'):
     rec = Recommender(make_config(name, embedding_size=16, relation_dim=16, batch_size=64,
                                   batch_size_kg=128, eval_user_batch=64, item_ranking=(10, 20),
-                                  max_epoch=1), device='cpu')
+                                  max_epoch=1), device='cpu',
+                      social=social if name == 'MHCN' else None)
     rec.build(data)
     assert set(rec.execute()) == {10, 20}
     losses = rec.result.history[0].losses
@@ -146,6 +153,14 @@ result = cli.run(cfg.replace(log_dir=os.path.join(root, 'log'), eval_user_batch=
 assert len(result.history) == 2 and native.library_path().exists()
 run = os.path.join(root, 'results', 'SASRec', 'tiny')
 assert 'train_performance.csv' in os.listdir(os.path.join(run, os.listdir(run)[0]))
+"""
+
+
+# the KG-embedding CLI on its synthetic KG, RealE by arity, one epoch
+_RUN_KGE = """
+from hypergraph_diffusion_for_recommendation_tpu_torch import kg_embedding_cli
+m = kg_embedding_cli.main(['--max_epoch', '1', '--dim', '16', '--test_by_arity'], device='cpu')
+assert 0.0 <= m.hit10['fil'] <= 1.0 and m.mr['fil'] >= 1.0
 """
 
 
@@ -194,6 +209,12 @@ def test_cli_training_runs_without_jax():
     proc = _probe(_RUN_CLI)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+def test_kg_embedding_runs_without_jax():
+    proc = _probe(_RUN_KGE)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout and "arity 2: hit@1" in proc.stdout
 
 
 def test_no_source_names_jax():

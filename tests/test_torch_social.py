@@ -218,14 +218,25 @@ def test_native_init_and_social_argument(graphs, name):
                                                           for k, v in jparams.items()}
 
 
-def test_recommender_builds_a_synthetic_network(graphs):
-    """Without social data `Recommender.build` gives a social model the
-    network the JAX package's tests build: `synthetic_social(inter, 5)`."""
-    rec = Recommender(make_config("MHCN", **CFG, eval_user_batch=64), device="cpu")
-    rec.build((graphs["train"], graphs["test"], None))
-    free = inspect.getclosurevars(rec.bundle.batch_loss).nonlocals
-    want = social_models.social_channel_mats(rec.cf_dev, graphs["tsoc"].social_mat)
-    for k, pair in free["channels"].items():
-        _eq(pair.fwd.vals[: pair.fwd.nnz], want[k].tocoo().data.astype(np.float32)[
-            np.lexsort((want[k].tocoo().col, want[k].tocoo().row))], k)
-    assert rec.cf_dev.inv_int_norm is not None and rec.cf_dev.int_norm is None
+@pytest.mark.parametrize("model", MODELS)
+def test_social_models_refuse_without_social_data(model, graphs, tmp_path, monkeypatch):
+    """Without social data `Recommender.build` and the CLI refuse a social
+    model, as the JAX `build_mhcn` and `build_sept` do (they assert that
+    social data was passed, and the JAX CLI passes none)."""
+    from hypergraph_diffusion_for_recommendation_tpu_torch import cli
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data.io import write_interactions
+
+    rec = Recommender(make_config(model, **CFG, eval_user_batch=64), device="cpu")
+    with pytest.raises(ValueError, match=f"{model} requires social data"):
+        rec.build((graphs["train"], graphs["test"], None))
+    assert rec.bundle is None
+    # the CLI over the same split written as files
+    data = tmp_path / "data" / "tiny"
+    write_interactions(str(data / "train.txt"), graphs["train"])
+    write_interactions(str(data / "test.txt"), graphs["test"])
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(ValueError, match=f"{model} requires social data"):
+        cli.main([f"--model={model}", "--dataset=tiny", f"--data_dir={tmp_path / 'data'}",
+                  "--max_epoch=1", "--embedding_size=16", f"--output_dir={tmp_path / 'out'}",
+                  "--quiet"], device="cpu")
+    assert not (tmp_path / "out").exists()

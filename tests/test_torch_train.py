@@ -17,6 +17,11 @@ Also here: the `gather_layout` mapping against the JAX CLI's, and the
 facade end to end on the CPU.
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -199,14 +204,27 @@ def test_modes_match_jax(state, mode, monkeypatch):
     assert ("cl_loss" in aux) == ("cl_loss" in jaux) == (mode == "woatt")
 
 
+@pytest.mark.parametrize("int8_env", [None, "1"])
+@pytest.mark.parametrize("dedup_env", [None, "0", "1"])
 @pytest.mark.parametrize("gather_layout", tdev.GATHER_LAYOUTS)
-def test_gather_layout_mapping_matches_jax_cli(gather_layout, monkeypatch):
-    # the JAX CLI maps gather_layout onto the packer's module globals
-    # (cli.py:225-237); its packer attaches only on a TPU and above
-    # PALLAS_MIN_NNZ, so both conditions are lifted here
-    monkeypatch.setattr(jdev, "PALLAS_DEDUP", "auto" if gather_layout == "auto" else
-                        ("1" if gather_layout in ("dedup", "dedup_int8") else "0"))
-    monkeypatch.setattr(jdev, "PALLAS_INT8", gather_layout in ("int8", "dedup_int8"))
+def test_gather_layout_mapping_matches_jax_cli(gather_layout, dedup_env, int8_env, monkeypatch):
+    # HGDR_DEDUP and HGDR_INT8 set (or unset) for both packages; the JAX CLI
+    # maps gather_layout and, under "auto", the variables onto the packer's
+    # module globals (cli.py:225-237), written here as it writes them; its
+    # packer attaches only on a TPU and above PALLAS_MIN_NNZ, so both
+    # conditions are lifted here
+    for name, value in (("HGDR_DEDUP", dedup_env), ("HGDR_INT8", int8_env)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    if gather_layout != "auto":
+        monkeypatch.setattr(jdev, "PALLAS_DEDUP",
+                            "1" if gather_layout in ("dedup", "dedup_int8") else "0")
+        monkeypatch.setattr(jdev, "PALLAS_INT8", gather_layout in ("int8", "dedup_int8"))
+    else:
+        monkeypatch.setattr(jdev, "PALLAS_DEDUP", os.environ.get("HGDR_DEDUP", "auto"))
+        monkeypatch.setattr(jdev, "PALLAS_INT8", os.environ.get("HGDR_INT8") == "1")
     monkeypatch.setattr(jdev, "PALLAS_MIN_NNZ", 0)
     monkeypatch.setattr(jdev.jax, "default_backend", lambda: "tpu")
     for shape, deg, seed in (((150, 100), 40.0, 9), ((120, 300), 20.0, 3)):
@@ -224,6 +242,23 @@ def test_gather_layout_mapping_matches_jax_cli(gather_layout, monkeypatch):
             np.testing.assert_array_equal(tb_.cols.numpy(), np.asarray(jb_.cols))
 
 
+def test_pad_table_budget_reads_the_environment():
+    # HGDR_PAD_TABLE_BUDGET sets the padded membership tables' byte budget at
+    # import, as in the JAX package (data/device.py:118): at 0 bytes every
+    # table takes the CSR form, in both packages
+    probe = ("import os, sys; os.environ['HGDR_PAD_TABLE_BUDGET'] = '0'; "
+             "from hypergraph_diffusion_for_recommendation_tpu_torch.data import device as t; "
+             "from hypergraph_diffusion_for_recommendation_tpu_torch import data as td; "
+             "from hypergraph_diffusion_for_recommendation_tpu.data import device as j; "
+             "tr, te, _ = td.synthetic_dataset(n_users=30, n_items=40, mean_degree=6.0, seed=1); "
+             "cf = td.build_cf_device_data(td.build_interaction(tr, te), 'cpu'); "
+             "print(t.PAD_TABLE_BUDGET, j.PAD_TABLE_BUDGET, type(cf.sample_membership).__name__)")
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                          timeout=300, cwd=Path(__file__).resolve().parents[1],
+                          env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert proc.stdout.split() == ["0", "0", "CSRMembership"], proc.stdout + proc.stderr
+
+
 def test_recommender_routes_gather_layout(monkeypatch):
     # Recommender.build -> build_{cf,kg}_device_data -> make_adj_pair: every
     # layout comes out as configured (attached on the CPU for the test)
@@ -238,6 +273,15 @@ def test_recommender_routes_gather_layout(monkeypatch):
         for pair in (rec.bundle.cf.adj, rec.bundle.kg.kg_adj):
             for sp in (pair.fwd, pair.bwd):
                 assert (sp.blocked.dedup, sp.blocked.int8, sp.blocked.bf16) == want + (True,)
+    # under "auto" the layout variables decide, read when the layouts are packed
+    monkeypatch.setenv("HGDR_DEDUP", "1")
+    monkeypatch.setenv("HGDR_INT8", "1")
+    rec = Recommender(make_config("KHGRec", hyper_dim=16, relation_dim=8, batch_size_kg=64,
+                                  eval_user_batch=64), device="cpu")
+    rec.build(data)
+    for pair in (rec.bundle.cf.adj, rec.bundle.kg.kg_adj):
+        assert all((sp.blocked.dedup, sp.blocked.int8) == (True, True)
+                   for sp in (pair.fwd, pair.bwd))
     with pytest.raises(ValueError, match="gather_layout"):
         tdev.make_adj_pair([0], [0], [1.0], (1, 1), "cpu", gather_layout="int4")
 
