@@ -177,6 +177,29 @@ Phases, in order; any failure exits non-zero:
      RealE on arity-3 tuples: filtered Hit@10 above 0.15), and `python -m
      ...kg_embedding_cli --model RealE --max_epoch 3 --test_by_arity` in a
      process of its own (exit code 0).
+ 22. profile: `Trainer.profile_epoch` of KHGRec in bench.py's configuration at the
+     LastFM shape (kernel 1) and at ML-1M density (kernel 2), its steps replayed
+     graphs: the profiled epoch's loss and aux terms bit for bit those of the same
+     epoch unprofiled from the same restored state; the trace read by
+     `utils/trace_analysis.py` (one execution of the step annotation a step, 16
+     SpMM launches a step at most, traced again while fewer: the profiler loses
+     events); `trace_roofline` with the kernels' bytes (`spmm_bytes`, as
+     `bound_ms` reckons them, times the launches) and `cost_analysis` of one
+     step; the trace's device time a step within PROFILE_RTOL of phase 6's
+     replayed step; every share at most 1; the step's FLOPs.
+ 23. parallel: the collective layer (`parallel/`) on 4 ranks (a 2 x 2 mesh) that
+     share the card through gloo, started by `utils.platform.run_ranks`, with
+     LastFM-shape tables (1890 x 17632, width 64, batch 2048): the sharded and
+     all-to-all lookups' rows and gradients bit for bit the single-device
+     gather's (no overflow at capacity factor 2), `sharded_user_topk` at k 40
+     giving the single-device `masked_topk`'s ids but at counted near ties, 5
+     `ShardedMF` steps within 1e-6 of the dense steps; each rank's backend and
+     device, each call's time.
+ 24. supervisor: `utils.supervisor.run_supervised` around `python -m ...cli` for
+     KHGRec (bench.py's configuration, 11 epochs, checkpoints): the child's
+     process group is SIGKILLed once its first checkpoint (epoch 10) exists; the
+     restart carries --resume once, and its epochs and final metrics equal an
+     uninterrupted run's bit for bit.
 
 Each phase's seconds are printed as it ends (`[time]`), and all of them
 with the total before the result lines.
@@ -423,6 +446,32 @@ KGE_TIE_RTOL = 1e-6
 # the JAX package's artifact headers (utils/logging.py), at the CLI's top-N 10, 20, 40
 PERF_HEADER = "epoch,train_time,test_time,hit@40,precision@40,recall@40,ndcg@40"
 FINAL_HEADER = "topN,hit_ratio,precision,recall,ndcg"
+# phase 22: `Trainer.profile_epoch` of KHGRec (KHGREC_TRAIN) at each shape, the kernel its
+# "auto" layout launches; the trace's device time a step against the replayed step's
+# `device_ms` (phase 6), within PROFILE_RTOL
+PROFILE_SHAPES = (("lastfm", "segment_spmm_rows"), ("ml1m", "segment_spmm_dedup"))
+PROFILE_RTOL = 0.10
+# phase 23: the collective layer on PARALLEL_MESH ranks sharing the card, LastFM-shape tables
+# (1890 users x 17632 items) at width 64, batch 2048; sharded_user_topk at k 40 over every
+# user; PARALLEL_MF_STEPS ShardedMF steps within PARALLEL_MF_ATOL of the dense steps; each
+# call timed PARALLEL_REPS times on every rank
+PARALLEL_MESH = (2, 2)
+PARALLEL_DIM, PARALLEL_BATCH, PARALLEL_K = 64, 2048, 40
+PARALLEL_MF_STEPS, PARALLEL_MF_LRATE, PARALLEL_MF_ATOL = 5, 0.05, 1e-6
+PARALLEL_REPS = 5
+# a sharded top-k id may differ from the dense one where the two scores lie within this share
+# of the row's largest |score| (the local products may sum in another order than the full one)
+TOPK_TIE_RTOL = 1e-6
+# phase 24: KHGRec in bench.py's configuration through the CLI under the supervisor; the CLI
+# saves a checkpoint every 10 epochs (as the JAX CLI), so the run takes 11: the child is
+# killed once epoch 10's checkpoint exists, and the restart resumes for epoch 11
+SUPERVISED_EPOCHS = 11
+CLI_MODULE = "hypergraph_diffusion_for_recommendation_tpu_torch.cli"
+CLI_SUPERVISED = ["--model=KHGRec", "--hyper_dim=128", "--relation_dim=32", "--n_layers=2",
+                  "--batch_size=2048", "--batch_size_kg=8192", "--mode=full", "--drop_rate=0.2",
+                  "--p=0.3", "--temp=1.0", "--cl_rate=0.01", "--lrate=0.001",
+                  "--dataset=synthetic", "--early_stopping_steps=100", "--save_checkpoints",
+                  f"--max_epoch={SUPERVISED_EPOCHS}"]
 
 
 def log(*a) -> None:
@@ -475,17 +524,21 @@ def kernel_only_ms(by_name: dict[str, float]) -> float:
     return sum(t for k, t in by_name.items() if "segment_spmm" in k)
 
 
-def bound_ms(mat, d: int) -> tuple[float, str]:
-    """Least time for A @ X at this matrix: the CSR matrix (8 B per edge,
-    4 B per row pointer), the X rows it references and the output, each
-    moved once, against 2 * nnz * d f32 operations."""
+def spmm_bytes(mat, d: int) -> int:
+    """The bytes A @ X must move at this matrix: the CSR matrix (8 B per
+    edge, 4 B per row pointer), the X rows it references and the output,
+    each moved once."""
     import numpy as np
 
-    nnz = mat.nnz
     used_cols = np.unique(mat.indices).shape[0]
-    nbytes = 8 * nnz + 4 * (mat.shape[0] + 1) + 4 * d * used_cols + 4 * d * mat.shape[0]
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * nnz * d / F32_FLOPS * 1e3
+    return 8 * mat.nnz + 4 * (mat.shape[0] + 1) + 4 * d * used_cols + 4 * d * mat.shape[0]
+
+
+def bound_ms(mat, d: int) -> tuple[float, str]:
+    """Least time for A @ X at this matrix: `spmm_bytes` against 2 * nnz * d
+    f32 operations."""
+    t_bytes = spmm_bytes(mat, d) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * mat.nnz * d / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3038,6 +3091,374 @@ def phase_kge(card: str) -> dict:
                                                     lines=lines))
 
 
+def _trace_spmm_launches(ps) -> dict[str, int]:
+    """SpMM launches by kernel name among a traced program's device ops."""
+    return {name: op.count for name, op in ps.ops.items() if spmm_launches({name: op.count})}
+
+
+def phase_profile(shape: str, graph: dict, kname: str, step_device_ms: float, card: str) -> dict:
+    """`Trainer.profile_epoch` of KHGRec (KHGREC_TRAIN) at this shape, its steps replayed
+    graphs (captured in a first epoch): its loss and aux terms bit for bit those of the same
+    epoch run unprofiled from the same restored state; the trace read by
+    `utils.trace_analysis`: one execution of the step annotation a step, at most 16 SpMM
+    launches of `kname` a step (a trace with fewer is taken again, up to TRACE_ATTEMPTS: the
+    profiler loses events); `trace_roofline` with the kernels' bytes (`spmm_bytes` of each
+    (matrix, direction), CALLS_PER_STEP times) and `cost_analysis` of one step; the trace's
+    device time a step within PROFILE_RTOL of phase 6's replayed step (`step_device_ms`);
+    every share at most 1."""
+    import shutil
+
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender, Trainer
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train.trainer import STEP_ANNOTATION
+    from hypergraph_diffusion_for_recommendation_tpu_torch.utils.profiling import cost_analysis
+    from hypergraph_diffusion_for_recommendation_tpu_torch.utils.trace_analysis import (
+        device_program_stats,
+        trace_roofline,
+    )
+
+    rec = Recommender(make_config("KHGRec", **KHGREC_TRAIN, item_ranking=(10, 20, 40),
+                                  max_epoch=1, early_stopping_steps=100), DEVICE)
+    rec.build(graph["data"])
+    rec.init_weights(SEED)
+    tr = Trainer(rec.bundle, seed=SEED, extras=rec.extras)
+    tr.run_epoch(0)  # each path's eager first step and its capture
+    state = tr.snapshot(optimizer=True)
+    want = tr.run_epoch(1)
+    torch.cuda.synchronize()
+    program = f"{STEP_ANNOTATION}:cf"
+    want_launches = 16 * tr.n_batches
+    root = OUT_DIR / "profile" / shape
+    shutil.rmtree(root, ignore_errors=True)
+    best = None
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        tr.restore(state)
+        trace_dir = root / f"trace{attempt}"
+        t0 = time.time()
+        got = tr.profile_epoch(str(trace_dir), 1)
+        profile_s = time.time() - t0
+        if got != want:
+            raise AssertionError(f"{shape}: the profiled epoch gave {got}, the unprofiled "
+                                 f"one {want}")
+        ps = device_program_stats(str(trace_dir))[program]
+        if ps.n_executions != tr.n_batches:
+            raise AssertionError(f"{shape}: {ps.n_executions} executions of {program!r} in the "
+                                 f"trace, {tr.n_batches} steps run")
+        by_kernel = _trace_spmm_launches(ps)
+        n = sum(by_kernel.values())
+        if n > want_launches or any(kname not in k for k in by_kernel):
+            raise AssertionError(f"{shape}: the trace holds SpMM launches {by_kernel}, at most "
+                                 f"{want_launches} of {kname} expected")
+        if best is None or n > best[0]:
+            best = (n, trace_dir, by_kernel, profile_s)
+        if n == want_launches:
+            break
+        log(f"[timer] profile {shape}: the trace holds {n} SpMM launches, expected "
+            f"{want_launches}: traced again")
+    n, trace_dir, by_kernel, profile_s = best
+    extra = sum(CALLS_PER_STEP * spmm_bytes(m, D) for mat in graph["mats"].values()
+                for m in (mat, mat.T.tocsr()))
+    # the work of one step, counted op by op (the kernels count 0: their bytes are `extra`)
+    tr.restore(state)
+    batches = tr.sample_epoch()
+    cost = cost_analysis(tr._step_body, tuple(t[0] for t in batches), tr.epoch_keys(1)[0])
+    torch.cuda.synchronize()
+    tr.restore(state)
+    r = trace_roofline(str(trace_dir), extra_bytes_per_exec=float(extra), cost=cost,
+                       program=program)
+    trace_ms = r["device_s_per_exec"] * 1e3
+    rel = abs(trace_ms - step_device_ms) / step_device_ms
+    shares = {"measured_hbm_util": r["measured_hbm_util"], "measured_mfu": r["measured_mfu"],
+              "op_time_coverage": r["op_time_coverage"],
+              **{f"share of {o['name']}": o["share"] for o in r["top_ops"]}}
+    summary = dict(shape=shape, kernel=kname, card=card, steps=tr.n_batches, loss=got[0],
+                   trace_spmm_launches=n, trace_spmm_launches_expected=want_launches,
+                   launches_by_kernel=by_kernel, trace_device_ms_per_step=trace_ms,
+                   replayed_step_device_ms=step_device_ms, device_ms_rel_diff=rel,
+                   cost_flops_per_step=cost["flops"],
+                   cost_bytes_per_step=cost["bytes accessed"], cost_ops_per_step=cost["ops"],
+                   kernel_bytes_per_step=extra, profiled_epoch_s=round(profile_s, 3),
+                   roofline={k: v for k, v in r.items() if k != "top_ops"},
+                   top_ops=r["top_ops"])
+    log(f"[profile] {json.dumps(summary)}")
+    if rel > PROFILE_RTOL:
+        raise AssertionError(f"{shape}: the trace's device time a step {trace_ms:.4f} ms is "
+                             f"{rel:.1%} from the replayed step's {step_device_ms:.4f} ms")
+    bad = {k: v for k, v in shares.items() if not 0.0 <= v <= 1.0}
+    if bad:
+        raise AssertionError(f"{shape}: shares outside [0, 1]: {bad}")
+    if n < want_launches:
+        log(f"[profile] {shape}: the best of {TRACE_ATTEMPTS} traces holds {n} of "
+            f"{want_launches} SpMM launches (the profiler lost events)")
+    del rec, tr
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _parallel_cases(lastfm) -> dict:
+    """The inputs of phase 23 (numpy, drawn from SEED): LastFM-shape tables, a batch of
+    PARALLEL_BATCH ids, every user's rated items from the LastFM-shape split."""
+    import numpy as np
+
+    n_users, n_items = SHAPES["lastfm"]["n_users"], SHAPES["lastfm"]["n_items"]
+    rng = np.random.default_rng(SEED)
+    f32 = np.float32
+    limit = math.sqrt(6.0 / (n_items + PARALLEL_DIM))
+    items = rng.uniform(-limit, limit, (n_items, PARALLEL_DIM)).astype(f32)
+    idx = rng.integers(0, n_items, PARALLEL_BATCH).astype(np.int32)
+    weight = rng.standard_normal((PARALLEL_BATCH, PARALLEL_DIM)).astype(f32)
+    train = np.asarray(lastfm[0][:, :2], np.int64)
+    per_user = [[] for _ in range(n_users)]
+    for u, i in train:
+        if u < n_users and i < n_items:
+            per_user[u].append(i)
+    rated = np.full((n_users, max(len(r) for r in per_user)), -1, np.int32)
+    for u, r in enumerate(per_user):
+        rated[u, :len(r)] = r
+    gen_u = math.sqrt(6.0 / (n_users + PARALLEL_DIM))
+    tables = (rng.uniform(-gen_u, gen_u, (n_users, PARALLEL_DIM)).astype(f32), items.copy())
+    mf = {k: rng.integers(0, n_users if k == "users" else n_items,
+                          (PARALLEL_MF_STEPS, PARALLEL_BATCH)).astype(np.int32)
+          for k in ("users", "pos", "neg")}
+    return dict(
+        lookup=dict(kind="lookup", table=items, idx=idx, weight=weight),
+        a2a=dict(kind="a2a", table=items, idx=idx, weight=weight, capacity_factor=2.0),
+        user_topk=dict(kind="user_topk",
+                       users=rng.standard_normal((n_users, PARALLEL_DIM)).astype(f32),
+                       items=rng.standard_normal((n_items, PARALLEL_DIM)).astype(f32),
+                       rated=rated, k=PARALLEL_K),
+        sharded_mf=dict(kind="sharded_mf", n_users=n_users, n_items=n_items, dim=PARALLEL_DIM,
+                        lrate=PARALLEL_MF_LRATE, tables=tables, **mf),
+    )
+
+
+def phase_parallel(lastfm, card: str) -> dict:
+    """The collective layer on PARALLEL_MESH ranks that share the card (gloo: NCCL refuses two
+    ranks on one device), started by `utils.platform.run_ranks`: `spmd_sharded_lookup` and
+    `spmd_a2a_lookup` rows and table gradients bit for bit the single-device gather's (no
+    a2a overflow at capacity factor 2), `sharded_user_topk` at k PARALLEL_K with TF32 off
+    giving the single-device `masked_topk`'s ids but at counted near ties (TOPK_TIE_RTOL),
+    PARALLEL_MF_STEPS `ShardedMF` steps within PARALLEL_MF_ATOL of the same dense SGD steps on
+    one device; each rank's backend, device and each call's time (the largest over the
+    ranks)."""
+    import numpy as np
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.losses import bpr_loss
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.topk import (
+        exact_scores,
+        masked_topk,
+    )
+    from hypergraph_diffusion_for_recommendation_tpu_torch.parallel.check import run_cases
+    from hypergraph_diffusion_for_recommendation_tpu_torch.utils.platform import run_ranks
+
+    cases = _parallel_cases(lastfm)
+    n_ranks = PARALLEL_MESH[0] * PARALLEL_MESH[1]
+    t0 = time.time()
+    ranks = run_ranks(n_ranks, run_cases, PARALLEL_MESH, DEVICE, cases, PARALLEL_REPS,
+                      device=DEVICE, timeout=600.0)
+    ranks_s = time.time() - t0
+    for r in ranks:
+        log(f"[parallel] rank {r['rank']} at mesh coordinate {r['coordinate']}: backend "
+            f"{r['backend']}, device {r['device']}")
+    if {r["backend"] for r in ranks} != {"gloo"} or any(r["leaked"] for r in ranks):
+        raise AssertionError(f"ranks: backends {[r['backend'] for r in ranks]}, JAX modules "
+                             f"{[r['leaked'] for r in ranks]}")
+    dev = torch.device(DEVICE)
+    first = [r for r in ranks if r["coordinate"][0] == 0]  # data rank 0, model ranks in order
+
+    # --- lookups against the single-device gather
+    c = cases["lookup"]
+    table = torch.tensor(c["table"], device=dev, requires_grad=True)
+    idx = torch.tensor(c["idx"], device=dev).long()
+    rows = table[idx]
+    (torch.sin(rows) * torch.tensor(c["weight"], device=dev)).sum().backward()
+    want_rows, want_grad = rows.detach().cpu().numpy(), table.grad.cpu().numpy()
+    out = {}
+    for case in ("lookup", "a2a"):
+        if case == "lookup":
+            got_rows = [r["lookup"]["rows"] for r in ranks]
+        else:
+            got_rows = [np.concatenate([r["a2a"]["rows"] for r in first])]
+            overflow = {r["a2a"]["overflow"] for r in ranks}
+            if overflow != {0}:
+                raise AssertionError(f"a2a: overflow {overflow} at capacity factor 2")
+        grads = [np.concatenate([r[case]["grad"] for r in ranks if r["coordinate"][0] == d])
+                 for d in range(PARALLEL_MESH[0])]
+        rows_equal = all(np.array_equal(g, want_rows) for g in got_rows)
+        grads_equal = all(np.array_equal(g, want_grad) for g in grads)
+        diff = max(float(np.abs(g - want_grad).max()) for g in grads)
+        out[case] = dict(rows_bitwise=rows_equal, grad_bitwise=grads_equal, grad_max_diff=diff,
+                         ms=max(r[case]["ms"] for r in ranks))
+        log(f"[parallel] {case}: rows bit for bit {rows_equal}, gradient bit for bit "
+            f"{grads_equal} (max diff {diff:.3g}); {max(r[case]['ms'] for r in ranks):.3f} ms "
+            f"a lookup and its backward")
+        if not (rows_equal and grads_equal):
+            raise AssertionError(f"{case}: the sharded lookup differs from the dense gather")
+
+    # --- sharded top-k against the single-device masked top-k
+    c = cases["user_topk"]
+    scores = exact_scores(torch.tensor(c["users"], device=dev), torch.tensor(c["items"],
+                                                                             device=dev))
+    rated = torch.tensor(c["rated"], device=dev)
+    vals, ids = masked_topk(scores, rated, c["k"])
+    vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
+    s_np = scores.cpu().numpy()
+    scale = np.abs(s_np).max(axis=1)
+    ties = 0
+    for r in ranks:
+        g_ids, g_vals = r["user_topk"]["ids"], r["user_topk"]["vals"]
+        for u, j in zip(*np.nonzero(g_ids != ids)):
+            gap = abs(float(s_np[u, g_ids[u, j]]) - float(vals[u, j]))
+            if gap > TOPK_TIE_RTOL * scale[u]:
+                raise AssertionError(f"user_topk: user {u} position {j}: id {g_ids[u, j]} "
+                                     f"against {ids[u, j]}, scores {gap:.3g} apart")
+            ties += int(r["rank"] == 0)
+        val_diff = float(np.abs(g_vals - vals).max())
+        if val_diff > TOPK_TIE_RTOL * float(scale.max()):
+            raise AssertionError(f"user_topk: values differ by {val_diff:.3g}")
+    out["user_topk"] = dict(users=int(ids.shape[0]), k=c["k"], near_tie_ids=ties,
+                            ms=max(r["user_topk"]["ms"] for r in ranks))
+    log(f"[parallel] sharded_user_topk: {ids.shape[0]} users, k {c['k']}: ids equal but at "
+        f"{ties} near ties; {out['user_topk']['ms']:.3f} ms")
+
+    # --- ShardedMF against the dense SGD steps
+    c = cases["sharded_mf"]
+    u_t, i_t = (torch.tensor(t, device=dev) for t in c["tables"])
+    losses = []
+    for s in range(PARALLEL_MF_STEPS):
+        uu, ii = u_t.clone().requires_grad_(), i_t.clone().requires_grad_()
+        ids_s = [torch.tensor(c[k][s], device=dev).long() for k in ("users", "pos", "neg")]
+        loss = bpr_loss(uu[ids_s[0]], ii[ids_s[1]], ii[ids_s[2]])
+        du, di = torch.autograd.grad(loss, (uu, ii))
+        u_t, i_t = u_t - PARALLEL_MF_LRATE * du, i_t - PARALLEL_MF_LRATE * di
+        losses.append(float(loss.detach()))
+    want_u, want_i = u_t.cpu().numpy(), i_t.cpu().numpy()
+    mf_diff = max(max(float(np.abs(r["sharded_mf"]["user"] - want_u).max()),
+                      float(np.abs(r["sharded_mf"]["item"] - want_i).max()),
+                      float(np.abs(np.asarray(r["sharded_mf"]["losses"]) - losses).max()))
+                  for r in ranks)
+    out["sharded_mf"] = dict(steps=PARALLEL_MF_STEPS, max_diff=mf_diff, losses=losses,
+                             ms_per_step=max(r["sharded_mf"]["ms"] for r in ranks))
+    log(f"[parallel] ShardedMF: {PARALLEL_MF_STEPS} steps, tables and losses within "
+        f"{mf_diff:.3g} of the dense steps; {out['sharded_mf']['ms_per_step']:.3f} ms a step")
+    if mf_diff > PARALLEL_MF_ATOL:
+        raise AssertionError(f"ShardedMF: {mf_diff:.3g} from the dense steps")
+    summary = dict(card=card, mesh=PARALLEL_MESH, backends=[r["backend"] for r in ranks],
+                   devices=[r["device"] for r in ranks], ranks_s=round(ranks_s, 2), **out)
+    log(f"[parallel] {json.dumps(summary)}")
+    return summary
+
+
+def _perf_rows(path: Path) -> dict:
+    """train_performance.csv's rows by epoch, without the two time columns and
+    the header lines (a resumed run appends its own, as in the JAX package)."""
+    rows = {}
+    for line in path.read_text().splitlines():
+        cells = line.split(",")
+        if cells[0] != "epoch":
+            rows[cells[0]] = [cells[0]] + cells[3:]
+    return rows
+
+
+def phase_supervisor(card: str) -> dict:
+    """`utils.supervisor.run_supervised` around the port's CLI on the card (KHGRec,
+    CLI_SUPERVISED): a watcher SIGKILLs the child's process group once its first
+    checkpoint exists (epoch 10's); the restart must carry --resume once, its rows of
+    train_performance.csv (times aside) must equal an uninterrupted run's, and its
+    final_metrics.csv the uninterrupted run's byte for byte."""
+    import os
+    import shutil
+    import signal
+    import threading
+    from unittest import mock
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.utils import supervisor as SUP
+
+    root = OUT_DIR / "supervisor"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    path = os.pathsep.join(p for p in (str(REPO), os.environ.get("PYTHONPATH")) if p)
+
+    def command(name: str) -> list[str]:
+        return [sys.executable, "-m", CLI_MODULE, *CLI_SUPERVISED, f"--output_dir={root / name}",
+                "--quiet"]
+
+    t0 = time.time()
+    whole = subprocess.run(command("whole"), cwd=root, capture_output=True, text=True,
+                           timeout=900, env=dict(os.environ, PYTHONPATH=path))
+    whole_s = time.time() - t0
+    if whole.returncode != 0:
+        raise AssertionError(f"the uninterrupted CLI run exited {whole.returncode}: "
+                             f"{whole.stderr[-2000:]}")
+    children: list[subprocess.Popen] = []
+
+    class Recorded(subprocess.Popen):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            children.append(self)
+
+    killed = {}
+
+    def watch():
+        deadline = time.time() + 900
+        while time.time() < deadline:
+            ckpts = list((root / "supervised").glob("**/checkpoints/ckpt_*.pt"))
+            if ckpts and children:
+                os.killpg(children[0].pid, signal.SIGKILL)
+                killed.update(after_s=round(time.time() - t0, 2), checkpoint=ckpts[0].name)
+                return
+            time.sleep(0.05)
+
+    lines = []
+    cwd, env_path = os.getcwd(), os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = path
+    os.chdir(root)  # the run log (./log) lands here
+    try:
+        t0 = time.time()
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        with mock.patch.object(SUP.subprocess, "Popen", Recorded):
+            report = SUP.run_supervised(command("supervised"), max_restarts=2, backoff_s=1.0,
+                                        log=lambda m: (lines.append(m), log(m)))
+        supervised_s = time.time() - t0
+        watcher.join(timeout=5.0)
+    finally:
+        os.chdir(cwd)
+        if env_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = env_path
+    args = [list(p.args) for p in children]
+    if not killed or report.outcomes != ["exit:-9", "ok"] or report.final_returncode != 0:
+        raise AssertionError(f"supervisor: killed {killed}, outcomes {report.outcomes}, "
+                             f"code {report.final_returncode}")
+    if len(args) != 2 or "--resume" in args[0] or args[1].count("--resume") != 1:
+        raise AssertionError(f"supervisor: the attempts ran {args}")
+    runs = {name: next((root / name).glob("**/final_metrics.csv")).parent
+            for name in ("whole", "supervised")}
+    want_rows, got_rows = (_perf_rows(runs[n] / "train_performance.csv")
+                           for n in ("whole", "supervised"))
+    last = str(SUPERVISED_EPOCHS - 1)  # the file counts epochs from 0
+    if last not in got_rows or any(got_rows[e] != want_rows.get(e) for e in got_rows):
+        raise AssertionError(f"supervisor: the supervised run's epochs {got_rows} differ from "
+                             f"the uninterrupted run's {want_rows}")
+    final_equal = ((runs["whole"] / "final_metrics.csv").read_bytes()
+                   == (runs["supervised"] / "final_metrics.csv").read_bytes())
+    summary = dict(card=card, epochs=SUPERVISED_EPOCHS, killed=killed,
+                   outcomes=report.outcomes, restart_args_tail=args[1][-3:],
+                   uninterrupted_s=round(whole_s, 2), supervised_s=round(supervised_s, 2),
+                   final_metrics_equal=final_equal, epochs_compared=sorted(got_rows, key=int),
+                   final_metrics=(runs["supervised"] / "final_metrics.csv").read_text())
+    log(f"[supervisor] {json.dumps(summary)}")
+    if not final_equal:
+        raise AssertionError("supervisor: final_metrics.csv differs from the uninterrupted "
+                             "run's")
+    return summary
+
+
 def main() -> int:
     try:
         import torch
@@ -3127,11 +3548,18 @@ def main() -> int:
         f"19 SASRec, CL4SRec {shape}", phase_sequential, shape, graphs[shape]["data"], card)]
     cli_run = timed("20 CLI", phase_cli, lastfm, graphs["ml1m"]["data"], card)
     kge = timed("21 KG embedding", phase_kge, card)
+    profiles = [timed(f"22 profile {shape}", phase_profile, shape, graphs[shape], kname,
+                      next(t for t in trains if t["shape"] == shape
+                           and t["gather_layout"] == "auto")["step_device_ms"], card)
+                for shape, kname in PROFILE_SHAPES]
+    parallel = timed("23 parallel", phase_parallel, lastfm, card)
+    supervised = timed("24 supervisor", phase_supervisor, card)
     (OUT_DIR / "summary.json").write_text(json.dumps(dict(
         kernels=rows, slices=summaries, training=trains, hd=hd, hd_variants=variants,
         prop_cache=caches, family=family, lightgcn=lightgcn, zoo=zoo, joint=joint, sgl=sgl,
         adjacency=adjacency, kgat=kgat, rest=rest, sequential=sequential, cli=cli_run,
-        kge=kge, seconds=seconds), indent=1))
+        kge=kge, profile=profiles, parallel=parallel, supervisor=supervised,
+        seconds=seconds), indent=1))
     log(f"[time] per phase: {json.dumps(seconds)}")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,4 +1,11 @@
-from .base import MODEL_REGISTRY, ModelBundle, build_model, model_data_needs, register_model
+from .base import (
+    MODEL_REGISTRY,
+    ModelBundle,
+    build_model,
+    model_data_needs,
+    model_shard_needs,
+    register_model,
+)
 
 # import model modules for their registrations
 from . import (  # noqa: F401
@@ -22,4 +29,5 @@ from . import (  # noqa: F401
     ssl_family,
 )
 
-__all__ = ["MODEL_REGISTRY", "ModelBundle", "build_model", "model_data_needs", "register_model"]
+__all__ = ["MODEL_REGISTRY", "ModelBundle", "build_model", "model_data_needs", "model_shard_needs",
+           "register_model"]

@@ -146,6 +146,33 @@ _MODULE_DATA_NEEDS = {
 }
 
 
+# Which adjacency representations may be built ROW-WINDOW SHARDED for each
+# model NAME (the JAX package's table): only representations the model
+# touches exclusively through spmm/spmm_pair/two_hop and AdjPair.dropped
+# qualify. Scatter-form models (HD, HGNN_HD2) and the augmentation models
+# (SGL/AutoCF) keep replicated adjacencies. "kg" marks the KG adjacency.
+_MODEL_SHARD_NEEDS = {
+    "MF": frozenset(),
+    "LightGCN": frozenset({"adj"}),
+    "HCCF": frozenset({"adj"}),
+    "HGCN": frozenset({"adj"}),
+    "SHT": frozenset({"adj"}),
+    "HGNN_HD": frozenset({"adj", "b_hyper"}),
+    "HGNN_HD3": frozenset({"adj", "b_hyper"}),
+    "HGNN_HD4": frozenset({"adj", "b_hyper"}),
+    "LocalEncoder": frozenset({"adj", "b_hyper"}),
+    "WaveletHD": frozenset({"adj", "b_hyper"}),
+    "WaveletHD2": frozenset({"adj", "b_hyper"}),
+    "KHGRec": frozenset({"adj", "kg"}),
+}
+
+
+def model_shard_needs(name: str) -> frozenset:
+    """Adjacency representations safe to shard for `name` (possibly
+    empty). Unlisted models keep fully replicated adjacencies."""
+    return _MODEL_SHARD_NEEDS.get(name, frozenset())
+
+
 def model_data_needs(name: str):
     """Adjacency representations `name`'s builder consumes, or None
     (= build everything) for unregistered names."""

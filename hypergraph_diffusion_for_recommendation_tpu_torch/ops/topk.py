@@ -10,6 +10,9 @@ serving in exact float32 (the JAX package's `precision="highest"`): it
 runs with `torch.backends.cuda.matmul.allow_tf32 = False`, whatever the
 process set, since TF32 keeps about three decimal digits and reorders
 near-ties.
+
+`distributed_topk` merges the top-k of item shards held by the ranks of
+a process group (`parallel/topk.py`).
 """
 
 from __future__ import annotations
@@ -62,3 +65,27 @@ def masked_topk(
     scores: torch.Tensor, rated_pad: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     return topk_ids(mask_rated(scores, rated_pad), k)
+
+
+def distributed_topk(
+    local_scores: torch.Tensor,
+    k: int,
+    group,
+    item_shard_offset: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k across an item axis sharded over the ranks of `group` (a
+    `torch.distributed` process group; the JAX function's axis name).
+
+    Each rank computes the top-k of its item slice, converts ids to
+    global ids by its offset, all-gathers k * n_ranks candidates (in group
+    rank order), and takes the top-k of the merged set, ties to the lower
+    candidate position as `lax.top_k`. Communication is O(B * k * n_ranks)
+    instead of O(B * I)."""
+    from ..parallel.mesh import all_gather_cat
+
+    loc_vals, loc_ids = topk_ids(local_scores, k)
+    glob_ids = loc_ids + item_shard_offset
+    all_vals = all_gather_cat(loc_vals, group, dim=1)
+    all_ids = all_gather_cat(glob_ids, group, dim=1)
+    m_vals, m_pos = topk_ids(all_vals, k)
+    return m_vals, all_ids.gather(1, m_pos)

@@ -80,12 +80,15 @@ into the tensors the step graphs read (parameters, Adam's state, extras
 buffers); the plateau schedules are not saved (neither are they in the JAX
 package). `Trainer(..., debug_nans=True)` runs every step eagerly under
 `torch.autograd.detect_anomaly` and raises at the first non-finite loss.
-Meshes wait.
+`profile_epoch` runs an epoch under torch.profiler, each step inside a
+`record_function` range named `STEP_ANNOTATION:<phase>`, and writes a
+Chrome trace that `utils/trace_analysis.py` reads. Meshes wait.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -111,6 +114,9 @@ _FROZEN_EPOCHS = 10
 # captured: a real step, which fills Adam's state and the layouts' caches
 # (the dedup layout's parts are cut on the host at first use)
 GRAPH_WARMUP_STEPS = 1
+# the record_function range around each training step, ":<phase>" appended: the program
+# that utils/trace_analysis.py reads from a trace of `profile_epoch`
+STEP_ANNOTATION = "train_step"
 
 
 @dataclass
@@ -442,7 +448,8 @@ class Trainer:
         if ph.sums is not None:
             ph.sums.zero_()
         for s in range(n):
-            self.train_step(tuple(t[s] for t in batches), keys[s], phase)
+            with torch.profiler.record_function(f"{STEP_ANNOTATION}:{phase}"):
+                self.train_step(tuple(t[s] for t in batches), keys[s], phase)
         return (ph.sums / n).cpu().tolist()
 
     def run_epoch(self, epoch: int) -> tuple[float, dict]:
@@ -463,6 +470,26 @@ class Trainer:
                 f"non-finite train loss ({loss}) at epoch {epoch + 1} for {self.cfg.model}")
         aux["train_loss"] = loss
         return loss, aux
+
+    def profile_epoch(self, trace_dir: str, epoch: int = 0) -> tuple[float, dict]:
+        """`run_epoch` under torch.profiler (CPU activity, and CUDA on a card),
+        its replayed step graphs included; writes the Chrome trace as
+        `<trace_dir>/epoch_<epoch>.<ns>.pt.trace.json` (read by
+        `utils.trace_analysis`; view with Perfetto or chrome://tracing) and
+        returns what `run_epoch` returns."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(trace_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            out = self.run_epoch(epoch)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        prof.export_chrome_trace(
+            os.path.join(trace_dir, f"epoch_{epoch}.{time.time_ns()}.pt.trace.json"))
+        return out
 
     # -- evaluation --------------------------------------------------------
     @torch.no_grad()

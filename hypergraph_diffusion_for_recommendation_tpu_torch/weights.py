@@ -218,3 +218,12 @@ def kge_params_from_jax(params_np: dict, device: torch.device | str | None = Non
     dev = resolve_device(device)
     return {k: torch.tensor(np.asarray(params_np[k], np.float32), device=dev)
             for k in ("ent", "rel")}
+
+
+def sharded_mf_from_jax(user_table, item_table) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX `ShardedMF`'s initial tables (`np.asarray(mf.user_table)`,
+    `np.asarray(mf.item_table)`: full, padded to a multiple of the model
+    axis), as the float32 CPU tensors `parallel.ShardedMF(tables=...)`
+    takes. JAX draws them with `jax.random`, which torch cannot replay."""
+    return (torch.tensor(np.asarray(user_table, np.float32)),
+            torch.tensor(np.asarray(item_table, np.float32)))

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing it (and serving and training
 KHGRec, HGNN_HD3, LightGCN, BUIR, SGL, AutoCF, LRMRec, KGIN, KGAT,
 HKGRippleNet and MHCN on the CPU, training SASRec through the CLI on
-written files, and training RealE through the KG-embedding CLI) pulls in
-neither JAX, flax, optax, nor the JAX package."""
+written files, training RealE through the KG-embedding CLI, and running
+the collective layer on spawned gloo ranks) pulls in neither JAX, flax,
+optax, nor the JAX package, in the process or in a spawned rank."""
 
 import subprocess
 import sys
@@ -27,7 +28,11 @@ from hypergraph_diffusion_for_recommendation_tpu_torch.models import (
 from hypergraph_diffusion_for_recommendation_tpu_torch.data import (
     experiments, io, knowledge, normalize, sequence, social, synthetic)
 from hypergraph_diffusion_for_recommendation_tpu_torch.utils import (
-    checkpoint, conf, logging, results)
+    checkpoint, conf, convert, dataset_tools, logging, platform, profiling, results, similarity,
+    supervisor, trace_analysis)
+from hypergraph_diffusion_for_recommendation_tpu_torch import parallel
+from hypergraph_diffusion_for_recommendation_tpu_torch.parallel import (
+    check, embedding, mesh, sharded_mf, topk)
 from hypergraph_diffusion_for_recommendation_tpu_torch.bench import gather_fusion as probe, timing
 {extra}
 bad = sorted(m for m in sys.modules
@@ -164,6 +169,21 @@ assert 0.0 <= m.hit10['fil'] <= 1.0 and m.mr['fil'] >= 1.0
 """
 
 
+# two spawned gloo ranks run the collective layer: neither loads JAX
+_RUN_RANKS = """
+import numpy as np
+from hypergraph_diffusion_for_recommendation_tpu_torch.parallel.check import run_cases
+from hypergraph_diffusion_for_recommendation_tpu_torch.utils.platform import run_ranks
+if __name__ == '__main__':
+    table = np.arange(32, dtype=np.float32).reshape(8, 4)
+    out = run_ranks(2, run_cases, (1, 2), 'cpu', {'lookup': dict(
+        kind='lookup', table=table, idx=np.array([1, 7, 3]), weight=np.ones((3, 4), np.float32))})
+    assert [r['leaked'] for r in out] == [[], []], out
+    assert (out[0]['lookup']['rows'] == table[[1, 7, 3]]).all()
+    print('RANKS', [r['backend'] for r in out])
+"""
+
+
 def _probe(extra: str = ""):
     return subprocess.run([sys.executable, "-c", _PROBE.format(extra=extra)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -215,6 +235,12 @@ def test_kg_embedding_runs_without_jax():
     proc = _probe(_RUN_KGE)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout and "arity 2: hit@1" in proc.stdout
+
+
+def test_spawned_ranks_load_no_jax():
+    proc = _probe(_RUN_RANKS)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout and "RANKS ['gloo', 'gloo']" in proc.stdout
 
 
 def test_no_source_names_jax():
