@@ -15,12 +15,21 @@ Phases, in order; any failure exits non-zero:
      profiler device times beside the plain version's, one
      `torch.sparse.mm` call's on the same CSR matrix (for the int8
      kernels on the dequantised table: it does not quantise), and the
-     bound; the parent's (PR 4's) wrapper time beside each row of kernels
-     1-3, and kernel 3's wrapper with the torch quantisation it had then;
-     each wrapper's device time per step split by kernel name; two calls
+     bound (kernel 3's from its own bytes: X read once by the quantisation,
+     q written, the used q rows gathered at 1 B, the indices and values, the
+     f32 output); the wrapper time of kernels 1-2's earlier code beside
+     each of their rows and of kernel 3's f64 design (the base kernel
+     on an int8 table, f64 sums and a dequantisation pass) beside its rows,
+     and kernel 3's wrapper with the torch quantisation; each wrapper's
+     device time per step split by kernel name, kernel 3's beside its f64
+     design's split and kernel 1's body, with its two targets (wrapper at
+     or below torch.sparse.mm, body at or below kernel 1's) held or
+     missed; the rows on kernel 3's f64 path, and kernel 3 on the LastFM
+     CF layout with every other value scaled by 2^12 (its rows on the f64
+     path: bit for bit, timed beside the f64 design's call); two calls
      compared bit for bit (kernel 1 and the int8 kernels must repeat
-     exactly, and the int8 kernels equal their plain version exactly; the
-     others report); the int8 quantisation kernel (`quantize_int8_fused`)
+     exactly, and the int8 kernels, whose sums are exact, equal their plain
+     version exactly; the others report); the int8 quantisation kernel (`quantize_int8_fused`)
      on each X, bit for bit with `quantize_int8`, and its device time;
      kernel 2 beside kernel 1 on the same ML-1M-density layouts, which says
      whether `dedup_auto` picks the faster kernel on this card;
@@ -237,6 +246,7 @@ OUT_DIR = REPO / "build" / "chip_smoke"
 # tensor cores (the kernels' multiply-adds are f32 FMAs in both modes)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+INT8_OPS = 1979e12  # int8 operations a second (the table's dense int8 rate)
 
 DEVICE = "cuda"
 D = 128  # hyper_dim of the serving path
@@ -287,11 +297,12 @@ KHGREC_TRAIN = dict(hyper_dim=D, relation_dim=32, n_layers=2, batch_size=2048,
                     batch_size_kg=8192, mode="full", drop_rate=0.2, p=0.3, temp=1.0,
                     cl_rate=0.01, lrate=0.001, compute_dtype="bfloat16", eval_user_batch=512)
 SOURCES = ("segment_spmm", "gather_fusion")  # csrc/<name>.cu
-# figures of the parent's kernels (PR 4's code; this script on an NVIDIA H100 80GB HBM3 at
-# 700 W before the int8 and probe kernels were redesigned), printed beside this run's: each
-# phase-3 row's wrapper device ms per call for kernels 1-3, by (kernel,
-# graph.matrix.direction, mode), and each kernel's per-step ms at its main-path shape as PR 4
-# recorded it
+# figures of earlier designs, printed beside this run's (this script on an NVIDIA H100 80GB HBM3
+# at 700 W): kernels 1, 2 and 4 in the code before the int8 and probe kernels were redesigned,
+# kernel 3 in its f64 design (the base kernel on an int8 table with f64 sums, a dequantisation
+# pass and two quantisation launches).
+# Each phase-3 row's wrapper device ms per call, by (kernel, graph.matrix.direction, mode), and
+# each kernel's per-step ms at its main-path shape
 BEFORE_WRAPPER_MS = {  # (kernel, graph.matrix.direction): {mode: ms}
     ("segment_spmm_rows", "lastfm.cf.fwd"): {"f32": 0.0148, "bf16": 0.0157},
     ("segment_spmm_rows", "lastfm.cf.bwd"): {"f32": 0.0149, "bf16": 0.0158},
@@ -309,17 +320,26 @@ BEFORE_WRAPPER_MS = {  # (kernel, graph.matrix.direction): {mode: ms}
     ("segment_spmm_dedup", "ml1m.cf.bwd"): {"f32": 0.0573, "bf16": 0.0256},
     ("segment_spmm_dedup", "ml1m.kg.fwd"): {"f32": 0.0529, "bf16": 0.0242},
     ("segment_spmm_dedup", "ml1m.kg.bwd"): {"f32": 0.0534, "bf16": 0.0240},
-    ("segment_spmm_rows_int8", "lastfm.cf.fwd"): {"int8": 0.0731},
-    ("segment_spmm_rows_int8", "lastfm.cf.bwd"): {"int8": 0.0725},
-    ("segment_spmm_rows_int8", "lastfm.kg.fwd"): {"int8": 0.0968},
-    ("segment_spmm_rows_int8", "lastfm.kg.bwd"): {"int8": 0.0969},
-    ("segment_spmm_rows_int8", "ml1m.cf.fwd"): {"int8": 0.0465},
-    ("segment_spmm_rows_int8", "ml1m.cf.bwd"): {"int8": 0.0468},
-    ("segment_spmm_rows_int8", "ml1m.kg.fwd"): {"int8": 0.0490},
-    ("segment_spmm_rows_int8", "ml1m.kg.bwd"): {"int8": 0.0473},
+    ("segment_spmm_rows_int8", "lastfm.cf.fwd"): {"int8": 0.0366},
+    ("segment_spmm_rows_int8", "lastfm.cf.bwd"): {"int8": 0.0368},
+    ("segment_spmm_rows_int8", "lastfm.kg.fwd"): {"int8": 0.0508},
+    ("segment_spmm_rows_int8", "lastfm.kg.bwd"): {"int8": 0.0510},
+    ("segment_spmm_rows_int8", "ml1m.cf.fwd"): {"int8": 0.0283},
+    ("segment_spmm_rows_int8", "ml1m.cf.bwd"): {"int8": 0.0283},
+    ("segment_spmm_rows_int8", "ml1m.kg.fwd"): {"int8": 0.0293},
+    ("segment_spmm_rows_int8", "ml1m.kg.bwd"): {"int8": 0.0293},
 }
 BEFORE_STEP_MS = {"segment_spmm_rows": 0.3051, "segment_spmm_dedup": 0.3906,
-                  "segment_spmm_rows_int8": 1.3521, "segment_spmm_dedup_int8": 3.5692}
+                  "segment_spmm_rows_int8": 0.7008, "segment_spmm_dedup_int8": 3.5692}
+# the design BEFORE_* holds for each kernel
+BEFORE_OF = {"segment_spmm_rows": "the earlier code", "segment_spmm_dedup": "the earlier code",
+             "segment_spmm_rows_int8": "the f64 design", "segment_spmm_dedup_int8": "the earlier code"}
+# kernel 3's f64 design per step at the LastFM shape, by launch
+BEFORE_INT8_SPLIT = {"segment_spmm_rows_kernel<signed char>": 0.3601, "column_amax_kernel": 0.1312,
+                     "dequantise_kernel": 0.1108, "quantise_kernel": 0.0987}
+# kernel 3's f64 path is timed on this layout, beside the f64 design's call there (its SpMM
+# launch alone, ms; its time does not depend on the values)
+F64_PATH_AT, F64_DESIGN_BODY_MS = ("lastfm", "cf", "fwd"), 0.0187
 # the int8 quantisation kernel's row: per training step at the dedup_int8 phase's shape
 QUANT_SHAPE = "ml1m"
 
@@ -563,11 +583,26 @@ def spmm_bytes(mat, d: int) -> int:
     return 8 * mat.nnz + 4 * (mat.shape[0] + 1) + 4 * d * used_cols + 4 * d * mat.shape[0]
 
 
-def bound_ms(mat, d: int) -> tuple[float, str]:
+def int8_rows_bytes(mat, d: int) -> int:
+    """The bytes kernel 3's wrapper must move at this matrix: f32 X read once
+    by the quantisation, q and the scales written, the q rows in use
+    gathered at 1 B a feature, the CSR indices and values (8 B an edge, 4 B
+    a row pointer) and the f32 output."""
+    import numpy as np
+
+    used_cols = np.unique(mat.indices).shape[0]
+    m = mat.shape[1]
+    return (4 * m * d + m * d + 4 * d + d * used_cols + 8 * mat.nnz + 4 * (mat.shape[0] + 1)
+            + 4 * d * mat.shape[0])
+
+
+def bound_ms(mat, d: int, int8_rows: bool = False) -> tuple[float, str]:
     """Least time for A @ X at this matrix: `spmm_bytes` against 2 * nnz * d
-    f32 operations."""
-    t_bytes = spmm_bytes(mat, d) / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * mat.nnz * d / F32_FLOPS * 1e3
+    operations at the f32 rate; for kernel 3 its own bytes
+    (`int8_rows_bytes`) against its int8 products at the int8 rate."""
+    moved = int8_rows_bytes(mat, d) if int8_rows else spmm_bytes(mat, d)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * mat.nnz * d / (INT8_OPS if int8_rows else F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -586,6 +621,23 @@ def phase_device() -> str:
     return card
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled symbol (`_ZN<len><id>...` or
+    `_Z<len><id>...`): the last name, with an integer template argument."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    parts = []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    if not parts:
+        return mangled[:64]
+    arg = mangled[i:].split("EE")[0] if mangled[i:].startswith("ILi") else ""
+    return parts[-1] + (f"<{arg[3:]}>" if arg[3:].isdigit() else "")
+
+
 def phase_build() -> None:
     from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import (
         build,
@@ -600,9 +652,12 @@ def phase_build() -> None:
     log(f"[build] {', '.join(f'{n}.cu' for n in SOURCES)} built and loaded in "
         f"{time.time() - t0:.2f} s")
     for name in SOURCES:
+        entry = ""  # the kernel each ptxas line is about
         for line in build.BUILD_LOGS.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {name}: {line.strip()}")
+            if "Compiling entry function" in line and "'" in line:
+                entry = kernel_name(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log(f"[build]   {name}: {entry}: {line.strip()}")
 
 
 def make_graphs():
@@ -639,9 +694,13 @@ def phase_kernels(graphs) -> list[dict]:
 
     from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import segment_spmm as S
 
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from _int8_walk import int8_row_scales  # kernel 3's path decisions, written again in numpy
+
     gen = torch.Generator(DEVICE).manual_seed(SEED)
     rows = []
     per_step = {}  # (kernel, graph, mode): kernel-alone ms per training step
+    bodies = {}  # kernel: its SpMM launches' device ms per step at its main-path shape
     quant = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)  # per step at QUANT_SHAPE
     quantised = set()
 
@@ -660,12 +719,36 @@ def phase_kernels(graphs) -> list[dict]:
         m, d = x.shape
         b_ms = (4 * m * d + m * d + 4 * d) / HBM_BYTES_PER_S * 1e3  # X read, q and s written
         log(f"[quantize] {tag} X {m}x{d}: bit for bit with the torch passes | device ms: kernel "
-            f"{k_ms:.4f} ({', '.join(f'{n[:24]} {t:.4f}' for n, t in k_split.items())}) torch "
-            f"passes {p_ms:.4f} bound {b_ms:.4f} (bytes)")
+            f"{k_ms:.4f} ({', '.join(f'{n[:24]} {t:.4f}' for n, t in k_split.items())}) "
+            f"torch passes {p_ms:.4f} bound {b_ms:.4f} (bytes)")
         if gname == QUANT_SHAPE:
             quant["ms"] += CALLS_PER_STEP * k_ms
             quant["plain_ms"] += CALLS_PER_STEP * p_ms
             quant["bound_ms"] += CALLS_PER_STEP * b_ms
+    def check_f64_path(tag, blk, x, int_body):
+        """Kernel 3 with every other slot's value times 2^12, so that each
+        warp with two nonzero values spans more than 7 binades and sums in
+        f64 (its fallback): bit for bit with the plain version, two calls
+        equal, its device time beside the f64 design's and the integer
+        path's on the same layout."""
+        odd = torch.arange(blk.vals.numel(), device=blk.vals.device).reshape(blk.vals.shape) % 2
+        wide = blk.replace(vals=blk.vals * torch.where(odd == 1, 4096.0, 1.0))
+        n_f64 = int((~int8_row_scales(wide)[1]).sum())
+        got = S.blocked_spmm(wide, x)
+        again = S.blocked_spmm(wide, x)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, again) and torch.equal(got, S.blocked_spmm_reference(wide, x))):
+            raise AssertionError(f"segment_spmm_rows_int8's f64 path on {tag}: two calls differ "
+                                 f"or the bits differ from the plain version's")
+        k_ms, k_split = device_ms(lambda: S.blocked_spmm(wide, x))
+        body = kernel_only_ms(k_split)
+        before = BEFORE_WRAPPER_MS[("segment_spmm_rows_int8", tag)]["int8"]
+        log(f"[kernel] segment_spmm_rows_int8 {tag} int8, every other value x 2^12: rows on the "
+            f"f64 path {n_f64} of {wide.nrows}, bit for bit with the plain version, two calls "
+            f"bitwise equal | device ms a call: wrapper {k_ms:.4f} (the f64 design's {before:.4f})"
+            f", kernel alone {body:.4f} (the f64 design's {F64_DESIGN_BODY_MS:.4f}; the integer "
+            f"path's on the layout's own values {int_body:.4f})")
+
     for kname, (layout, modes, main_shape, main_mode, replaces) in KERNELS.items():
         pack = S.pack_blocked_dedup if layout == "dedup" else S.pack_blocked
         worst = 0.0
@@ -686,7 +769,7 @@ def phase_kernels(graphs) -> list[dict]:
                         check_invariants=False,
                     ).to(DEVICE)
                     exact = torch.as_tensor(m @ x.cpu().numpy(), device=DEVICE)
-                    b_ms, b_by = bound_ms(m, D)
+                    b_ms, b_by = bound_ms(m, D, int8_rows=kname == "segment_spmm_rows_int8")
                     for mode in modes:
                         blk = layout_f32.replace(bf16=mode == "bf16", int8=mode == "int8")
                         if mode == "int8":
@@ -714,10 +797,12 @@ def phase_kernels(graphs) -> list[dict]:
                         k_ms, k_split = device_ms(lambda: S.blocked_spmm(blk, x))
                         k_call = cuda_ms(lambda: S.blocked_spmm(blk, x))
                         old_quant = ""
-                        if kname == "segment_spmm_rows_int8":  # PR 4's wrapper: torch passes
+                        if kname == "segment_spmm_rows_int8":  # the torch passes quantising
                             with mock.patch.object(S, "quantize_int8_fused", S.quantize_int8):
                                 t_old = device_ms(lambda: S.blocked_spmm(blk, x))[0]
-                            old_quant = f"; with the torch quantisation {t_old:.4f}"
+                            n_f64 = int((~int8_row_scales(blk)[1]).sum())
+                            old_quant = (f"; with the torch quantisation {t_old:.4f}; rows on "
+                                         f"the f64 path {n_f64} of {m.shape[0]}")
                         p_ms = device_ms(lambda: S.blocked_spmm_reference(blk, x), iters=5)[0]
                         lib_label = "torch.sparse.mm" + (" (dequantised)" if mode == "int8"
                                                          else "")
@@ -730,7 +815,7 @@ def phase_kernels(graphs) -> list[dict]:
                             f"{m.shape[0]}x{m.shape[1]} nnz {m.nnz} blocks {blk.n_blocks}: "
                             f"max_abs_err {err:.3e} rel {err / max(scale, 1e-30):.3e} "
                             f"(vs scipy f32 {err_exact:.3e}) | device ms: wrapper {k_ms:.4f} "
-                            f"(kernel alone {k_alone:.4f}; PR 4's wrapper "
+                            f"(kernel alone {k_alone:.4f}; {BEFORE_OF[kname]}'s wrapper "
                             f"{'-' if before is None else f'{before:.4f}'}{old_quant}) "
                             f"plain {p_ms:.4f} "
                             f"{lib_label} {lib_ms:.4f} bound {b_ms:.4f} ({b_by}) | "
@@ -739,13 +824,16 @@ def phase_kernels(graphs) -> list[dict]:
                         if not ok:
                             raise AssertionError(f"{kname} disagrees with its plain version "
                                                  f"on {gname}.{mname}.{direction} {mode}")
+                        if (kname == "segment_spmm_rows_int8"
+                                and (gname, mname, direction) == F64_PATH_AT):
+                            check_f64_path(f"{gname}.{mname}.{direction}", blk, x, k_alone)
                         if (kname == "segment_spmm_rows" or mode == "int8") and not repeats:
                             raise AssertionError(f"{kname}: two calls on {gname}.{mname}."
                                                  f"{direction} {mode} gave different bits")
                         if mode == "int8" and not torch.equal(got, ref):
                             raise AssertionError(f"{kname} differs from its plain version on "
-                                                 f"{gname}.{mname}.{direction}: its f64 sums "
-                                                 f"are exact, the bits must agree")
+                                                 f"{gname}.{mname}.{direction}: its sums are "
+                                                 f"exact, the bits must agree")
                         worst = max(worst, err)
                         if gname == main_shape and mode == main_mode:
                             main["ms"] += CALLS_PER_STEP * k_ms
@@ -762,10 +850,23 @@ def phase_kernels(graphs) -> list[dict]:
             bound_by="bytes" if bound_by == {"bytes"} else "operations", **main,
         ))
         log(f"[kernel] {kname} per step at {main_shape} {main_mode}: wrapper {main['ms']:.4f} ms "
-            f"(PR 4 {BEFORE_STEP_MS[kname]:.4f}), bound {main['bound_ms']:.4f}, "
-            f"torch.sparse.mm {main['library_ms']:.4f}")
+            f"({BEFORE_OF[kname]} {BEFORE_STEP_MS[kname]:.4f}), bound "
+            f"{main['bound_ms']:.4f}, torch.sparse.mm {main['library_ms']:.4f}")
         for name, t in sorted(main_split.items(), key=lambda kv: -kv[1]):
             log(f"[kernel]   {kname} per step, split: {t:.4f}  {name[:100]}")
+        bodies[kname] = sum(t for name, t in main_split.items() if "segment_spmm" in name)
+        if kname == "segment_spmm_rows_int8":
+            log("[kernel]   segment_spmm_rows_int8 per step, the f64 design's split: " + ", ".join(
+                f"{n} {t:.4f}" for n, t in BEFORE_INT8_SPLIT.items()))
+            quant_ms = main["ms"] - bodies[kname]
+            log(f"[kernel] segment_spmm_rows_int8 targets at lastfm int8, per step: wrapper "
+                f"{main['ms']:.4f} ms against torch.sparse.mm {main['library_ms']:.4f} "
+                f"({'held' if main['ms'] <= main['library_ms'] else 'missed'}); body "
+                f"{bodies[kname]:.4f} against kernel 1's bf16 body "
+                f"{bodies['segment_spmm_rows']:.4f} "
+                f"({'held' if bodies[kname] <= bodies['segment_spmm_rows'] else 'missed'}); "
+                f"quantisation {quant_ms:.4f}; bound {main['bound_ms']:.4f} "
+                f"(the f64 design: 0.7008 / 0.3601 / 0.2299 / 0.4996 / 0.2524)")
     rows.append(dict(
         name="quantize_int8", route="cuda",
         source="hypergraph_diffusion_for_recommendation_tpu_torch/csrc/segment_spmm.cu",

@@ -7,11 +7,11 @@
 //                               (pack_blocked_dedup)
 //   segment_spmm_rows_int8   <- _segment_matmul_int8_kernel       (:397), base layout, int8 X
 //   segment_spmm_dedup_int8  <- _segment_matmul_dedup_int8_kernel (:475), dedup layout, int8 X
-// segment_spmm_rows_int8 is the base kernel instantiated on an int8 table (Vec<int8_t>), ending
-// in a dequantisation pass; segment_spmm_dedup_int8 runs on the dedup kernel's parts and work
-// lists and dequantises as it writes. Both take X quantised on the card by quantize_int8 (two
-// launches: column maxima, then the quantisation), the port of the XLA ops of the int8
-// branches (:569-571, :596-598). The bf16 form of segment_spmm_dedup runs on the tensor cores
+// segment_spmm_rows_int8 runs on the base kernel's work lists with a kernel of its own that sums
+// in integers and dequantises as it writes; segment_spmm_dedup_int8 runs on the dedup kernel's
+// parts and work lists and dequantises as it writes. Both take X quantised on the card by
+// quantize_int8 (two launches), the port of the XLA ops of the int8 branches (:569-571,
+// :596-598). The bf16 form of segment_spmm_dedup runs on the tensor cores
 // (segment_spmm_dedup_mma_kernel). Python binding, checks, the work lists and the plain
 // versions: ops/kernels/segment_spmm.py.
 //
@@ -26,7 +26,7 @@
 // Design, against that:
 //  * Base kernel (segment_spmm_rows): every output row is written exactly once, by one writer,
 //    with no atomics and no zero fill, so two calls give the same bits. A lane reads 16 B of an
-//    X row (4 f32 or 8 bf16 features; 8 B = 8 int8 features), so a team of G lanes (a power of
+//    X row (4 f32 or 8 bf16 features), so a team of G lanes (a power of
 //    two <= 32) covers a row: at d = 128 a bf16 row is half a warp. The whole warp works on one
 //    row at a time, in lockstep: its teams take alternate groups of kGather edges, each team
 //    keeps kGather row gathers in flight, and at the row's end the teams' sums are added by a
@@ -62,14 +62,36 @@
 //  * int8 mode follows the TPU int8 kernels: X is quantised per column
 //    (q = clip(round(X / s), +-127), s = max(max|X| / 127, 1e-12)), the kernels gather int8 rows,
 //    round each edge value and the dedup weight W to bf16 whatever the bf16 flag says, and scale
-//    each finished sum, rounded to f32, by s. Where the TPU kernel sums in f32, these sum in f64:
-//    every product bf16 x int8 is exact, so the f64 sums are exact and do not depend on their
-//    order. In f32 that order changes the last bit of a sum, which the next product's
-//    quantisation can turn into a whole int8 step (and in the backward, where g is quantised per
-//    column, into a visible change of a gradient); in f64 the kernels and the plain version
-//    agree bit for bit and training in int8 mode repeats exactly. segment_spmm_rows_int8 is the
-//    base kernel on the int8 table writing every row of an f64 scratch, which a second pass
-//    rounds and scales.
+//    each finished sum, rounded to f32, by s. Where the TPU kernel sums in f32, these sum
+//    exactly: every product bf16 x int8 is exact, and so is a sum of them held in f64 or in
+//    integers, whatever its order. In f32 that order changes the last bit of a sum, which the
+//    next product's quantisation can turn into a whole int8 step (and in the backward, where g is
+//    quantised per column, into a visible change of a gradient); exact, the kernels and the plain
+//    version (f64 sums) agree bit for bit and training in int8 mode repeats exactly: the f32
+//    rounding of an exact sum does not depend on how it was formed.
+//  * segment_spmm_rows_int8 (kernel 3) walks the base kernel's work lists (warp_rows, the same
+//    hub CTAs, the same costliest-first CTA order and next-row prefetch) in a kernel of its own,
+//    with no f64 scratch and no dequantisation pass: each output row's one writer stores it
+//    dequantised. A lane gathers 16 B of a q row (16 features), so a team of G lanes covers a
+//    row (8 lanes at d = 128: 4 teams a warp, 3 gathers each in flight). It sums in integers:
+//    each bf16 edge value is m * 2^e (m its 8-bit significand with the sign), t = the least e of
+//    the warp's slots, W = m << (e - t), and every element is one dp2a (W in an int16 half of
+//    one operand times a sign-extended byte of the q row, added to an int32): no conversion, no
+//    f64. That is exact while W fits int16 (span = the greatest e less t at most 7) and the
+//    int32 sum holds at most kSumSlots = 512 slots (255 * 127 * 512 * 2^7 < 2^31); the
+//    main-path matrices' rows span at most 4. A row of a normal warp has at most row_slots <=
+//    512 slots; a hub warp sums its share in chunks of 512 slots, each flushed exactly to f64.
+//    A warp whose values span more than 7 binades (or hold an inf or a nan) takes f64 sums, 4
+//    features a pass from 4-byte gathers (8 spill and slow the integer path), exact while its
+//    values span some 25 binades. The teams' integer sums meet by a reduce-scatter over the
+//    team bits (the same shuffles every call), after which each lane holds G / 2 of the row's
+//    sums and the warp writes f32(S * 2^t) * s[col] coalesced (one int->f32 conversion and two
+//    multiplies; through f64 where 2^t or the result would leave f32's normal range). A hub
+//    CTA's warps each decide for their own share and write its exact sum as f64 to shared
+//    memory, added in warp order and dequantised once. No atomics, one writer a row: two calls
+//    give the same bits. What bounds it at the main-path shapes: the issue of its instructions
+//    and the latency of its gathers with 32 warps an SM (64 registers at d 33-128; the other
+//    widths take 80), not bytes.
 //  * The quantisation (quantize_int8, the wrapper's before either int8 kernel): two launches in
 //    place of six torch passes. column_amax_kernel takes the column maxima |X| of row chunks into
 //    a small partial table; quantise_kernel CTAs each reduce that table (the same maxima in any
@@ -77,7 +99,8 @@
 //    plain version and JAX divide) and write q = clamp(rint(x / s)) for a chunk of rows, rint
 //    rounding half to even as torch.round. It equals the plain quantize_int8 bit for bit. Bound:
 //    bytes (X read, q written: 1.6 MB at ML-1M density, 0.5 us); at these sizes each launch is a
-//    few microseconds of latency.
+//    few microseconds of latency (a one-launch form across a grid-wide barrier measured slower
+//    on the H100: PERF.md).
 //  * segment_spmm_dedup_int8 runs on the dedup kernel's structure: the same parts of near-equal
 //    cost (dedup_parts with dedup_int8_block_cost: per block the staging plus its live slots,
 //    since its CUDA-core walk costs per slot, not per 16 distinct columns as the mma kernel), the
@@ -88,7 +111,7 @@
 //    Warp w owns the window rows r % 16 == w and keeps their f64 sums in registers, 64 features
 //    a CTA (two a lane); each run adds W[r, u] * q[u] with two f64 multiply-adds, exact. No
 //    atomics, no zero fill, one writer a value: a window of one part writes its dequantised rows
-//    straight to the output (f32(sum) * s, as the dequantisation pass computes it); the parts of
+//    straight to the output (f32(sum) * s, as the plain version computes it); the parts of
 //    a split window write [rb, d] f64 tiles to a scratch that a second pass sums in part order
 //    and dequantises as it writes. Its f64 sums take some 128 registers a thread: one 512-thread
 //    CTA an SM. What bounds it: not bytes but the instructions of the walk (per run a shuffle
@@ -166,32 +189,6 @@ struct Vec<__nv_bfloat16> {
   static __device__ __forceinline__ float round(float v) { return bf16_round(v); }
 };
 
-// int8 table: the TPU int8 kernels contract bf16 edge values (and a bf16 W) with the int8 rows.
-// Each product bf16 x int8 has at most 15 significant bits, so f64 sums of them are exact (and
-// the same in any order) until a row's values span some 25 binades; the dequantise pass rounds
-// each sum to f32 once and scales it.
-template <>
-struct Vec<int8_t> {
-  static constexpr int kN = 8;
-  static constexpr int kGather = 4;
-  static constexpr int kMinBlocks = 4;
-  using Raw = uint2;
-  using Acc = double;
-  static __device__ __forceinline__ Raw load(const int8_t* p) {
-    return __ldg(reinterpret_cast<const uint2*>(p));
-  }
-  static __device__ __forceinline__ void add(double (&acc)[kN], float v, const Raw& r) {
-    const double dv = v;
-#pragma unroll
-    for (int k = 0; k < kN; ++k) {
-      const unsigned w = k < 4 ? r.x : r.y;
-      const int q = static_cast<signed char>((w >> (8 * (k % 4))) & 0xffu);
-      acc[k] = fma(dv, static_cast<double>(q), acc[k]);
-    }
-  }
-  static __device__ __forceinline__ float round(float v) { return bf16_round(v); }
-};
-
 __device__ __forceinline__ void store(float* o, const float (&a)[4]) {
   *reinterpret_cast<float4*>(o) = make_float4(a[0], a[1], a[2], a[3]);
 }
@@ -199,13 +196,6 @@ __device__ __forceinline__ void store(float* o, const float (&a)[4]) {
 __device__ __forceinline__ void store(float* o, const float (&a)[8]) {
   reinterpret_cast<float4*>(o)[0] = make_float4(a[0], a[1], a[2], a[3]);
   reinterpret_cast<float4*>(o)[1] = make_float4(a[4], a[5], a[6], a[7]);
-}
-
-__device__ __forceinline__ void store(double* o, const double (&a)[8]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    reinterpret_cast<double2*>(o)[k] = make_double2(a[2 * k], a[2 * k + 1]);
-  }
 }
 
 // acc += val * X[col] over the slots [s, e) of one row, the whole warp in lockstep: the warp
@@ -339,6 +329,405 @@ __global__ void __launch_bounds__(kThreads, Vec<T>::kMinBlocks) segment_spmm_row
       if (lane < G && feat < d) store(out + static_cast<int64_t>(lo + i) * d + feat, acc);
     }
   }
+}
+
+// ---- kernel 3, the int8 base kernel (see the header): integer sums, dequantised as it writes ----
+constexpr int kQ = 16;        // int8 features a lane gathers: one 16-byte load
+constexpr int kQGather = 3;   // q rows a team keeps in flight (4 spill at 64 registers)
+constexpr int kMaxSpan = 7;     // binades the integer path takes: |W| < 2^15 (dp2a's int16)
+constexpr int kSumSlots = 512;  // slots an int32 sum takes: 255 * 127 * 512 * 2^kMaxSpan < 2^31
+constexpr int kF64Feats = 4;    // features a lane sums in one pass of the f64 path (8 spill)
+
+// the team shape at 2^LG lanes a q row (FW = 16 * 2^LG features a pass; d > 512 takes several
+// passes): P teams a warp, each lane holding NV of the row's sums after the reduce-scatter. At
+// d 33-128 (LG 2, 3: the main path's 128) the kernel fits 64 registers, 4 CTAs an SM; the other
+// widths spill there and take 80, 3 CTAs an SM.
+template <int LG>
+struct Team {
+  static constexpr int G = 1 << LG;
+  static constexpr int P = kWarp / G;
+  static constexpr int NV = G / 2;
+  static constexpr int FW = G * kQ;
+  static constexpr int kStep = P * kQGather;  // slots a round of the warp takes
+  static constexpr int kMinBlocks = LG == 2 || LG == 3 ? 4 : 3;
+};
+
+// a bf16-rounded edge value (f32 bits b) is mag * 2^(key - 134), mag its significand with the
+// leading bit (0 for a zero), key = max(biased exponent, 1); key 255: inf or nan
+__device__ __forceinline__ int edge_mag(unsigned b) {
+  return ((b >> 16) & 0x7f) | (b & 0x7f800000u ? 0x80 : 0);
+}
+__device__ __forceinline__ int edge_key(unsigned b) { return max(static_cast<int>((b >> 23) & 0xff), 1); }
+
+// the integer weight of the value: W = +-mag << (key - lo), lo the least key of the warp's slots
+__device__ __forceinline__ int edge_weight(unsigned b, int lo) {
+  const int mag = edge_mag(b);
+  const int w = mag ? mag << (edge_key(b) - lo) : 0;
+  return (b >> 31) ? -w : w;
+}
+
+__device__ __forceinline__ double pow2d(int t) {  // 2^t, -1022 <= t <= 1023
+  return __longlong_as_double(static_cast<long long>(t + 1023) << 52);
+}
+
+// acc += W * q[col] over one batch of at most 32 slots, held one a lane (my_col, my_w: 0
+// beyond the batch's n), the whole warp in lockstep: team p takes the slots p * kQGather + u of
+// each round and keeps its kQGather 16-byte gathers in flight before the adds. One dp2a an
+// element: W in one int16 half of its operand times a sign-extended byte of the q row.
+template <int LG>
+__device__ __forceinline__ void int8_batch(const int8_t* __restrict__ x, int n, int d, int feat,
+                                           bool active, int team_off, int my_col, int my_w,
+                                           int (&acc)[kQ]) {
+  for (int r0 = 0; r0 < n; r0 += Team<LG>::kStep) {
+    uint4 raw[kQGather];
+#pragma unroll
+    for (int u = 0; u < kQGather; ++u) {
+      const int j = r0 + team_off + u;
+      const int col = __shfl_sync(kFull, my_col, j & (kWarp - 1));
+      raw[u] = make_uint4(0, 0, 0, 0);
+      if (active && j < n) {
+        raw[u] = __ldg(reinterpret_cast<const uint4*>(x + static_cast<int64_t>(col) * d + feat));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kQGather; ++u) {
+      const int w = __shfl_sync(kFull, my_w, (r0 + team_off + u) & (kWarp - 1));
+      const int lo = w & 0xffff;  // (W, 0) as int16 halves
+      const int hi = w << 16;     // (0, W)
+      const int wd[4] = {static_cast<int>(raw[u].x), static_cast<int>(raw[u].y),
+                         static_cast<int>(raw[u].z), static_cast<int>(raw[u].w)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[4 * i + 0] = __dp2a_lo(lo, wd[i], acc[4 * i + 0]);
+        acc[4 * i + 1] = __dp2a_lo(hi, wd[i], acc[4 * i + 1]);
+        acc[4 * i + 2] = __dp2a_hi(lo, wd[i], acc[4 * i + 2]);
+        acc[4 * i + 3] = __dp2a_hi(hi, wd[i], acc[4 * i + 3]);
+      }
+    }
+  }
+}
+
+// the f64 path's batch: acc += v * q[col] over the features feat .. feat + 4 (4-byte gathers)
+template <int LG>
+__device__ __forceinline__ void f64_batch(const int8_t* __restrict__ x, int n, int d, int feat,
+                                          bool active, int team_off, int my_col, float my_val,
+                                          double (&acc)[kF64Feats]) {
+  for (int r0 = 0; r0 < n; r0 += Team<LG>::kStep) {
+    int raw[kQGather];
+#pragma unroll
+    for (int u = 0; u < kQGather; ++u) {
+      const int j = r0 + team_off + u;
+      const int col = __shfl_sync(kFull, my_col, j & (kWarp - 1));
+      raw[u] = 0;
+      if (active && j < n) {
+        raw[u] = __ldg(reinterpret_cast<const int*>(x + static_cast<int64_t>(col) * d + feat));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kQGather; ++u) {
+      const double v = __shfl_sync(kFull, my_val, (r0 + team_off + u) & (kWarp - 1));
+#pragma unroll
+      for (int k = 0; k < kF64Feats; ++k) {
+        acc[k] = fma(v, static_cast<double>(static_cast<signed char>(raw[u] >> (8 * k))), acc[k]);
+      }
+    }
+  }
+}
+
+// one level of the reduce-scatter over the teams: lanes `off` apart (teams differing in one
+// bit) each keep one half of their 2 H sums, the lower half in the team whose bit is 0
+template <int H>
+__device__ __forceinline__ void scatter_level(int (&acc)[kQ], int off, bool upper) {
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const int send = upper ? acc[k] : acc[k + H];
+    const int keep = upper ? acc[k + H] : acc[k];
+    acc[k] = keep + __shfl_xor_sync(kFull, send, off);
+  }
+}
+
+// the teams' sums, reduce-scattered over the team bits: lane (team p, position q) ends with the
+// warp's sums of its team's features team_sub(p) .. + NV in acc[0 .. NV) (the same shuffles
+// every call)
+template <int LG>
+__device__ __forceinline__ void reduce_scatter(int (&acc)[kQ], int team) {
+  if constexpr (LG < 5) scatter_level<8>(acc, 1 << LG, team & 1);
+  if constexpr (LG < 4) scatter_level<4>(acc, 2 << LG, (team >> 1) & 1);
+  if constexpr (LG < 3) scatter_level<2>(acc, 4 << LG, (team >> 2) & 1);
+  if constexpr (LG < 2) scatter_level<1>(acc, 8 << LG, (team >> 3) & 1);
+}
+template <int LG>
+__device__ __forceinline__ int team_sub(int team) {
+  int sub = 0;
+  if constexpr (LG < 5) sub += (team & 1) * 8;
+  if constexpr (LG < 4) sub += ((team >> 1) & 1) * 4;
+  if constexpr (LG < 3) sub += ((team >> 2) & 1) * 2;
+  if constexpr (LG < 2) sub += (team >> 3) & 1;
+  return sub;
+}
+
+// the f64 path's teams added across the warp (lanes G, 2G, ... apart), the same tree every call
+template <int LG>
+__device__ __forceinline__ void reduce_teams_f64(double (&acc)[kF64Feats]) {
+#pragma unroll
+  for (int off = Team<LG>::G; off < kWarp; off <<= 1) {
+#pragma unroll
+    for (int k = 0; k < kF64Feats; ++k) acc[k] += __shfl_xor_sync(kFull, acc[k], off);
+  }
+}
+
+// the f64 path of warp_sums: 4 features a pass, each pass's sums handed to f64_out(h, acc) in
+// the lanes of team 0
+template <int LG, typename F64Out>
+__device__ __forceinline__ void f64_sums(const int* __restrict__ cols,
+                                         const float* __restrict__ vals,
+                                         const int8_t* __restrict__ xq, int s, int n, int d,
+                                         int feat, bool active, int team, int lane, int col0,
+                                         unsigned b0, int col1, unsigned b1, F64Out f64_out) {
+  const int team_off = team * kQGather;
+  for (int h = 0; h < kQ; h += kF64Feats) {
+    double acc[kF64Feats] = {};
+    f64_batch<LG>(xq, min(n, kWarp), d, feat + h, active, team_off, col0, __uint_as_float(b0), acc);
+    if (n > kWarp) {
+      f64_batch<LG>(xq, min(n, 2 * kWarp) - kWarp, d, feat + h, active, team_off, col1,
+                    __uint_as_float(b1), acc);
+    }
+    for (int t0 = s + 2 * kWarp; t0 < s + n; t0 += kWarp) {
+      const int ti = t0 + lane;
+      const int col = ti < s + n ? __ldg(cols + ti) : 0;
+      const float v = ti < s + n ? bf16_round(__ldg(vals + ti)) : 0.f;
+      f64_batch<LG>(xq, min(kWarp, s + n - t0), d, feat + h, active, team_off, col, v, acc);
+    }
+    reduce_teams_f64<LG>(acc);
+    if (team == 0) f64_out(h, acc);
+  }
+}
+
+// The sums of one warp's n slots [s, s + n) (a row, or a hub warp's share of one) over the
+// features of this pass. The integer path (returns true): the reduce-scattered sums S and t, the
+// sum being S * 2^t; a hub warp (kHub) hands each chunk of kSumSlots slots to flush(S, t,
+// first) instead (a normal warp's row, at most kSumSlots slots, is one chunk). The f64 path:
+// f64_sums. The first 32 slots come in (col0, b0: the f32 bits of the bf16-rounded value),
+// prefetched by the caller.
+template <int LG, bool kHub, typename Flush, typename F64Out>
+__device__ __forceinline__ bool warp_sums(const int* __restrict__ cols,
+                                          const float* __restrict__ vals,
+                                          const int8_t* __restrict__ xq, int s, int n, int d,
+                                          int feat, bool active, int team, int lane, int col0,
+                                          unsigned b0, int (&sums)[kQ], int& t, Flush flush,
+                                          F64Out f64_out) {
+  const int team_off = team * kQGather;
+  int col1 = 0;  // slots 32 .. 63
+  unsigned b1 = 0;
+  if (n > kWarp && kWarp + lane < n) {
+    col1 = __ldg(cols + s + kWarp + lane);
+    b1 = __float_as_uint(bf16_round(__ldg(vals + s + kWarp + lane)));
+  }
+  // the least and greatest exponent keys of the nonzero values (255 and 0 if all are zero)
+  int lo = edge_mag(b0) ? edge_key(b0) : 255;
+  int hi = edge_mag(b0) ? edge_key(b0) : 0;
+  if (n > kWarp && edge_mag(b1)) {
+    lo = min(lo, edge_key(b1));
+    hi = max(hi, edge_key(b1));
+  }
+  for (int ti = s + 2 * kWarp + lane; ti < s + n; ti += kWarp) {  // beyond 64 slots: a hub share
+    const unsigned b = __float_as_uint(bf16_round(__ldg(vals + ti)));
+    if (edge_mag(b)) {
+      lo = min(lo, edge_key(b));
+      hi = max(hi, edge_key(b));
+    }
+  }
+  lo = __reduce_min_sync(kFull, lo);
+  hi = __reduce_max_sync(kFull, hi);
+  t = lo - 134;
+  if ((lo == 255 && hi == 0) || (hi < 255 && hi - lo <= kMaxSpan)) {
+    // slots [c0, c1) loaded a batch of 32 at a time, from c0 = 64 on (the first two batches
+    // come in col0, b0 and col1, b1)
+    const auto batches = [&](int c0, int c1) {
+      for (int t0 = s + c0; t0 < s + c1; t0 += kWarp) {
+        const int ti = t0 + lane;
+        int col = 0, w = 0;
+        if (ti < s + c1) {
+          col = __ldg(cols + ti);
+          w = edge_weight(__float_as_uint(bf16_round(__ldg(vals + ti))), lo);
+        }
+        int8_batch<LG>(xq, min(kWarp, s + c1 - t0), d, feat, active, team_off, col, w, sums);
+      }
+    };
+#pragma unroll
+    for (int k = 0; k < kQ; ++k) sums[k] = 0;
+    const int w1 = edge_weight(b1, lo);
+    const int end = kHub ? min(n, kSumSlots) : n;
+    int8_batch<LG>(xq, min(n, kWarp), d, feat, active, team_off, col0, edge_weight(b0, lo), sums);
+    if (n > kWarp) int8_batch<LG>(xq, min(n, 2 * kWarp) - kWarp, d, feat, active, team_off, col1, w1, sums);
+    batches(2 * kWarp, end);
+    reduce_scatter<LG>(sums, team);
+    if constexpr (kHub) {
+      flush(sums, t, true);
+      for (int c = kSumSlots; c < n; c += kSumSlots) {  // a long share: the next chunk, exact anew
+#pragma unroll
+        for (int k = 0; k < kQ; ++k) sums[k] = 0;
+        batches(c, min(n, c + kSumSlots));
+        reduce_scatter<LG>(sums, team);
+        flush(sums, t, false);
+      }
+    }
+    return true;
+  }
+  f64_sums<LG>(cols, vals, xq, s, n, d, feat, active, team, lane, col0, b0, col1, b1, f64_out);
+  return false;
+}
+
+// Kernel 3 (see the header): out = (A @ (q * s)) over the base layout's work lists, q [ncols, d]
+// int8, s [d], 2^LG lanes a team; CTA c's warp w takes the rows [warp_rows[c][w],
+// warp_rows[c][w + 1]), a hub CTA one row of more than row_slots slots. Dynamic shared memory:
+// [8, FW] f64, a hub row's per-warp sums.
+template <int LG>
+__global__ void __launch_bounds__(kThreads, Team<LG>::kMinBlocks) segment_spmm_rows_int8_kernel(
+    const int* __restrict__ warp_rows, const int* __restrict__ row_start,
+    const int* __restrict__ row_end, const int* __restrict__ cols, const float* __restrict__ vals,
+    const int8_t* __restrict__ xq, const float* __restrict__ scale, float* __restrict__ out,
+    int d, int row_slots) {
+  using T = Team<LG>;
+  extern __shared__ double part[];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int q = lane & (T::G - 1);
+  const int team = lane >> LG;
+  const int sub = team_sub<LG>(team);  // the lane's first feature of the team's 16 after the scatter
+  const int* wr = warp_rows + blockIdx.x * (kWarpsPerCta + 1);
+  const int first = wr[0];
+  int sums[kQ];
+  int t;
+
+  if (wr[1] == first + 1 && row_end[first] - row_start[first] > row_slots) {
+    // hub CTA: warp w sums the w-th eighth of the row with its own exponent; the warps' exact
+    // sums meet in f64 in shared memory, added in warp order
+    const int s = row_start[first];
+    const int len = row_end[first] - s;
+    const int ws = s + static_cast<int>(static_cast<int64_t>(len) * warp / kWarpsPerCta);
+    const int we = s + static_cast<int>(static_cast<int64_t>(len) * (warp + 1) / kWarpsPerCta);
+    double* mine = part + warp * T::FW + q * kQ;
+    for (int c0 = 0; c0 < d; c0 += T::FW) {
+      const int feat = c0 + q * kQ;
+      const int col0 = ws + lane < we ? __ldg(cols + ws + lane) : 0;
+      const unsigned b0 = ws + lane < we ? __float_as_uint(bf16_round(__ldg(vals + ws + lane))) : 0u;
+      warp_sums<LG, true>(
+          cols, vals, xq, ws, we - ws, d, feat, feat < d, team, lane, col0, b0, sums, t,
+          [&](const int(&chunk)[kQ], int t2, bool first) {  // S * 2^t and its sum: exact
+            const double p2 = pow2d(t2);
+#pragma unroll
+            for (int k = 0; k < T::NV; ++k) {
+              const double v = __int2double_rn(chunk[k]) * p2;
+              mine[sub + k] = first ? v : mine[sub + k] + v;
+            }
+          },
+          [mine](int h, const double(&acc)[kF64Feats]) {
+#pragma unroll
+            for (int k = 0; k < kF64Feats; ++k) mine[h + k] = acc[k];
+          });
+      __syncthreads();
+      for (int i = threadIdx.x; i < T::FW && c0 + i < d; i += kThreads) {
+        double sum = part[i];
+        for (int k = 1; k < kWarpsPerCta; ++k) sum += part[k * T::FW + i];
+        out[static_cast<int64_t>(first) * d + c0 + i] =
+            __double2float_rn(sum) * __ldg(scale + c0 + i);
+      }
+      __syncthreads();
+    }
+    return;
+  }
+
+  // the warp's rows one after another, each summed by the whole warp; the next row's first
+  // 32 slots load while this row's gathers are in flight
+  const int lo = wr[warp];
+  const int nr = wr[warp + 1] - lo;
+  const int my_s = lane < nr ? row_start[lo + lane] : 0;  // row lo + lane's slot range
+  const int my_e = lane < nr ? row_end[lo + lane] : 0;
+  for (int c0 = 0; c0 < d; c0 += T::FW) {
+    const int feat = c0 + q * kQ;
+    const bool active = feat < d;
+    int s = __shfl_sync(kFull, my_s, 0);
+    int e = __shfl_sync(kFull, my_e, 0);
+    int pc = 0;
+    unsigned pb = 0;
+    if (nr > 0 && s + lane < e) {
+      pc = __ldg(cols + s + lane);
+      pb = __float_as_uint(bf16_round(__ldg(vals + s + lane)));
+    }
+    for (int i = 0; i < nr; ++i) {
+      const int cs = s, n = e - s, col0 = pc;
+      const unsigned b0 = pb;
+      if (i + 1 < nr) {
+        s = __shfl_sync(kFull, my_s, i + 1);
+        e = __shfl_sync(kFull, my_e, i + 1);
+        pc = s + lane < e ? __ldg(cols + s + lane) : 0;
+        pb = s + lane < e ? __float_as_uint(bf16_round(__ldg(vals + s + lane))) : 0u;
+      }
+      float* orow = out + static_cast<int64_t>(lo + i) * d;
+      const bool fast = warp_sums<LG, false>(
+          cols, vals, xq, cs, n, d, feat, active, team, lane, col0, b0, sums, t,
+          [](const int(&)[kQ], int, bool) {},
+          [active, scale, feat, orow](int h, const double(&acc)[kF64Feats]) {
+            if (!active) return;
+            const float4 s4 = __ldg(reinterpret_cast<const float4*>(scale + feat + h));
+            *reinterpret_cast<float4*>(orow + feat + h) = make_float4(
+                __double2float_rn(acc[0]) * s4.x, __double2float_rn(acc[1]) * s4.y,
+                __double2float_rn(acc[2]) * s4.z, __double2float_rn(acc[3]) * s4.w);
+          });
+      if (fast && active) {
+        // f32(S * 2^t) * s: one int->f32 conversion and an exact power-of-two multiply where
+        // 2^t and the result are normal f32 (|S| < 2^31), else through f64
+        float r[T::NV];
+        float sc[T::NV];  // the scales of the lane's NV output features
+        if constexpr (T::NV >= 4) {
+#pragma unroll
+          for (int k = 0; k < T::NV; k += 4) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(scale + feat + sub + k));
+            sc[k] = v.x;
+            sc[k + 1] = v.y;
+            sc[k + 2] = v.z;
+            sc[k + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < T::NV; ++k) sc[k] = __ldg(scale + feat + sub + k);
+        }
+        if (t >= -126 && t <= 96) {
+          const float p2 = __int_as_float((t + 127) << 23);
+#pragma unroll
+          for (int k = 0; k < T::NV; ++k) r[k] = __fmul_rn(__int2float_rn(sums[k]), p2) * sc[k];
+        } else {
+          const double p2 = pow2d(t);
+#pragma unroll
+          for (int k = 0; k < T::NV; ++k) {
+            r[k] = __double2float_rn(__int2double_rn(sums[k]) * p2) * sc[k];
+          }
+        }
+        float* o = orow + feat + sub;
+        if constexpr (T::NV >= 4) {
+#pragma unroll
+          for (int k = 0; k < T::NV; k += 4) {
+            *reinterpret_cast<float4*>(o + k) = make_float4(r[k], r[k + 1], r[k + 2], r[k + 3]);
+          }
+        } else if constexpr (T::NV == 2) {
+          *reinterpret_cast<float2*>(o) = make_float2(r[0], r[1]);
+        } else {
+          o[0] = r[0];
+        }
+      }
+    }
+  }
+}
+
+template <int LG>
+int launch_rows_int8(const int* warp_rows, const int* row_start, const int* row_end,
+                     const int* cols, const float* vals, const int8_t* xq, const float* scale,
+                     float* out, int n_ctas, int d, int row_slots, cudaStream_t stream) {
+  const int smem = kWarpsPerCta * Team<LG>::FW * static_cast<int>(sizeof(double));
+  segment_spmm_rows_int8_kernel<LG><<<n_ctas, kThreads, smem, stream>>>(
+      warp_rows, row_start, row_end, cols, vals, xq, scale, out, d, row_slots);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- the dedup kernel (see the header): grid (n_parts, feature slices) ----
@@ -772,17 +1161,7 @@ __global__ void __launch_bounds__(kDedupThreads, 1) segment_spmm_dedup_mma_kerne
   }
 }
 
-// int8 epilogue: out = f32(acc) * scale[column], as the TPU kernels scale the output tile
-__global__ void __launch_bounds__(kThreads) dequantise_kernel(
-    const double* __restrict__ acc, const float* __restrict__ scale, float* __restrict__ out,
-    int64_t n, int d) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
-    out[i] = __double2float_rn(acc[i]) * scale[i % d];
-  }
-}
-
-// ---- int8: the quantisation of X per column (2 launches), then the int8 dedup kernel ----
+// ---- int8: the quantisation of X per column, then the int8 dedup kernel ----
 constexpr int kQuantRowLanes = kThreads / kWarp;  // a quantisation CTA: 32 column vectors x 8 rows
 
 __device__ __forceinline__ float4 abs_max(float4 a, float4 b) {
@@ -1051,7 +1430,7 @@ __global__ void __launch_bounds__(kDedupThreads, 1) segment_spmm_dedup_int8_kern
 }
 
 // the rows of split windows: out = the f64 sum of their parts' tiles in part order, rounded to f32
-// and scaled, as dequantise_kernel does
+// and scaled, as the windows of one part are
 __global__ void __launch_bounds__(kThreads) segment_spmm_dedup_int8_sum_parts_kernel(
     const double2* __restrict__ scratch, const int* __restrict__ window_parts,
     const float2* __restrict__ scale, float2* __restrict__ out, int nrows, int rb, int d2) {
@@ -1125,15 +1504,6 @@ int launch_dedup(const int* part_window, const int* part_blocks, const int* wind
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dequantise(const double* acc, const float* scale, float* out, int nrows, int d,
-                      cudaStream_t stream) {
-  const int64_t n = static_cast<int64_t>(nrows) * d;
-  if (n <= 0) return 0;
-  const int grid = static_cast<int>(std::min<int64_t>((n + kThreads - 1) / kThreads, 132 * 16));
-  dequantise_kernel<<<grid, kThreads, 0, stream>>>(acc, scale, out, n, d);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Every entry point launches on `stream`, does not synchronise, allocates nothing, and returns
@@ -1141,10 +1511,10 @@ int launch_dequantise(const double* acc, const float* scale, float* out, int nro
 // (x_bf16 != 0) bf16 with d % 8 == 0, writing every row of the f32 `out` [nrows, d] (the dedup
 // kernel through the f32 `scratch` [n_parts, rb, d] where a window has several parts); or, for
 // the _int8 entry points, int8 with d % 32 == 0 beside its per-column f32 `scale` [d], writing
-// the dequantised f32 `out` whole: the base kernel through the f64 scratch `acc` [nrows, d],
-// which it writes whole, the dedup kernel through the f64 `scratch` [n_parts, rb, d] where a
-// window has several parts (neither needs zeroing). `lanes_log2` is log2 of the lanes a
-// base-kernel team spreads one X row over (the wrapper's choice).
+// the dequantised f32 `out` whole: the base kernel straight, the dedup kernel through the f64
+// `scratch` [n_parts, rb, d] where a window has several parts (no zeroing needed). `lanes_log2`
+// is log2 of the lanes a base-kernel team spreads one X row over (the wrapper's choice: 16 B a
+// lane, so 16 int8 features a lane in kernel 3, which takes row_slots <= 512).
 
 extern "C" int hd_segment_spmm_rows(const int* warp_rows, const int* row_start,
                                     const int* row_end, const int* cols, const float* vals,
@@ -1175,13 +1545,21 @@ extern "C" int hd_segment_spmm_dedup(const int* part_window, const int* part_blo
 
 extern "C" int hd_segment_spmm_rows_int8(const int* warp_rows, const int* row_start,
                                          const int* row_end, const int* cols, const float* vals,
-                                         const void* xq, const float* scale, double* acc,
-                                         float* out, int n_ctas, int nrows, int d,
-                                         int lanes_log2, int row_slots, void* stream) {
+                                         const void* xq, const float* scale, float* out,
+                                         int n_ctas, int d, int lanes_log2, int row_slots,
+                                         void* stream) {
+  if (row_slots > kSumSlots) return static_cast<int>(cudaErrorInvalidValue);  // one chunk a row
+  if (n_ctas <= 0) return 0;
+  const int8_t* q = static_cast<const int8_t*>(xq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = launch_rows<int8_t>(warp_rows, row_start, row_end, cols, vals, xq, acc, n_ctas,
-                                     d, lanes_log2, row_slots, s);
-  return rc != 0 ? rc : launch_dequantise(acc, scale, out, nrows, d, s);
+  switch (lanes_log2) {
+    case 1: return launch_rows_int8<1>(warp_rows, row_start, row_end, cols, vals, q, scale, out, n_ctas, d, row_slots, s);
+    case 2: return launch_rows_int8<2>(warp_rows, row_start, row_end, cols, vals, q, scale, out, n_ctas, d, row_slots, s);
+    case 3: return launch_rows_int8<3>(warp_rows, row_start, row_end, cols, vals, q, scale, out, n_ctas, d, row_slots, s);
+    case 4: return launch_rows_int8<4>(warp_rows, row_start, row_end, cols, vals, q, scale, out, n_ctas, d, row_slots, s);
+    case 5: return launch_rows_int8<5>(warp_rows, row_start, row_end, cols, vals, q, scale, out, n_ctas, d, row_slots, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int hd_segment_spmm_dedup_int8(const int* part_window, const int* part_blocks,

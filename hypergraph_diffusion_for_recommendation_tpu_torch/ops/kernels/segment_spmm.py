@@ -23,13 +23,14 @@ per slot. The forward runs on four CUDA kernels written for Hopper
     fields; `dedup_parts` cuts the blocks into parts); the parts of a
     window cut into several are summed by a second pass in part order;
   * `segment_spmm_rows_int8` and `segment_spmm_dedup_int8`, the ports of
-    `_segment_matmul_int8_kernel` and `_segment_matmul_dedup_int8_kernel`:
-    the first is the base kernel on an int8-quantised X
-    (`BlockedCOO.int8`), the second runs on the dedup kernel's parts
-    (`dedup_parts` with `dedup_int8_block_cost`) and work lists, its
-    sums in f64 registers, and dequantises as it writes. On the card X
-    is quantised by a kernel of two launches (`quantize_int8_fused`),
-    bit for bit with the plain `quantize_int8`.
+    `_segment_matmul_int8_kernel` and `_segment_matmul_dedup_int8_kernel`
+    on an int8-quantised X (`BlockedCOO.int8`): the first walks the base
+    layout's work lists summing in integers (in f64 where a warp's edge
+    values span more than 7 binades), the second runs on the dedup
+    kernel's parts (`dedup_parts` with `dedup_int8_block_cost`) and work
+    lists, its sums in f64 registers; both dequantise as they write. On the card X is
+    quantised by a kernel of two launches (`quantize_int8_fused`), bit for
+    bit with the plain `quantize_int8`.
 
 `blocked_spmm_reference` is the plain PyTorch version of all four and
 rounds where the kernels round. `blocked_spmm` takes it only for tensors
@@ -47,8 +48,10 @@ bf16) quantises X per column (`quantize_int8`), rounds the edge values
 and W to bf16 as bf16 mode does, sums in f64, where every bf16 x int8
 product and so every sum is exact (the TPU kernel sums in f32; see the
 CUDA source for why exact), and scales the sum, rounded to f32, by the
-column's scale. The int8 kernels and the plain version thus agree bit
-for bit.
+column's scale. The int8 kernels sum exactly too (kernel 3 in integers
+where they are exact, else in f64), and the f32 rounding of an exact sum
+does not depend on how it was formed: they agree with the plain version
+bit for bit.
 """
 
 from __future__ import annotations
@@ -551,7 +554,7 @@ def _library() -> ctypes.CDLL:
         lib.hd_segment_spmm_rows.restype = i
         lib.hd_segment_spmm_dedup.argtypes = [p] * 9 + [i, p, p] + [i] * 7 + [p]
         lib.hd_segment_spmm_dedup.restype = i
-        lib.hd_segment_spmm_rows_int8.argtypes = [p] * 9 + [i] * 5 + [p]
+        lib.hd_segment_spmm_rows_int8.argtypes = [p] * 8 + [i] * 4 + [p]
         lib.hd_segment_spmm_rows_int8.restype = i
         lib.hd_segment_spmm_dedup_int8.argtypes = [p] * 12 + [i] * 7 + [p]
         lib.hd_segment_spmm_dedup_int8.restype = i
@@ -703,21 +706,20 @@ def _launch(blocked: BlockedCOO, x: torch.Tensor, target: int | None = None) -> 
         table = x.to(torch.bfloat16)  # cast the table once
     else:
         table = x
-    # every kernel writes every row of `out` (and the base kernel of `acc`)
+    # every kernel writes every row of `out`
     out = torch.empty(n, d, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     vals, tab = blocked.vals.data_ptr(), table.data_ptr()
     tiles = (blocked.eb, blocked.rb, blocked.ub, d, stream)
     if not blocked.dedup:
         n_ctas = blocked.warp_rows.shape[0]
-        # a team of 2^lanes_log2 lanes covers a row, 16 B (8 B for int8) a lane
-        per_lane = 4 if table.dtype == torch.float32 else 8
+        # a team of 2^lanes_log2 lanes covers a row, 16 B a lane
+        per_lane = 16 // table.element_size()
         lanes_log2 = min(5, (-(-d // per_lane) - 1).bit_length())
         if scale is not None:
             name, fn = "segment_spmm_rows_int8", lib.hd_segment_spmm_rows_int8
-            acc = torch.empty(n, d, dtype=torch.float64, device=dev)
-            args = (*ptrs, vals, tab, scale.data_ptr(), acc.data_ptr(), out.data_ptr(), n_ctas,
-                    n, d, lanes_log2, ROW_SLOTS, stream)
+            args = (*ptrs, vals, tab, scale.data_ptr(), out.data_ptr(), n_ctas, d, lanes_log2,
+                    ROW_SLOTS, stream)
         else:
             name, fn = "segment_spmm_rows", lib.hd_segment_spmm_rows
             args = (*ptrs, vals, tab, int(blocked.bf16), out.data_ptr(), n_ctas, d, lanes_log2,

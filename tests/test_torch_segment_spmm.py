@@ -17,6 +17,8 @@ import torch
 
 from hypergraph_diffusion_for_recommendation_tpu.ops.pallas import segment_spmm as jsp
 from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import segment_spmm as tsp
+from _int8_walk import (CHUNK, MAX_SPAN, SPAN_F64_ROWS, int8_decode, int8_row_scales, int8_scale,
+                        int8_shares, span_graph)
 
 
 def _random(rng):
@@ -373,6 +375,156 @@ def test_dedup_int8_walk_matches_plain_bit_for_bit(case, target):
     x = np.random.default_rng(7).standard_normal((shape[1], 32)).astype(np.float32)
     want = tsp.blocked_spmm_reference(tb, torch.as_tensor(x)).numpy()
     np.testing.assert_array_equal(_emulate_dedup_int8(tb, x, target), want)
+
+
+_Q_GATHER = 3  # kernel 3's kQGather: q rows a team keeps in flight
+
+
+def _team_order(n: int, teams: int):
+    """The slots each team of kernel 3's warp adds, in its order: per batch
+    of 32, rounds of teams * 3 slots, team p taking p * 3 + u of each."""
+    order = [[] for _ in range(teams)]
+    for b0 in range(0, n, 32):
+        nb = min(32, n - b0)
+        for r0 in range(0, nb, teams * _Q_GATHER):
+            for p in range(teams):
+                order[p] += [b0 + j for j in range(r0 + p * _Q_GATHER, r0 + (p + 1) * _Q_GATHER)
+                             if j < nb]
+    return order
+
+
+def _tree(parts):
+    """The teams' sums combined over the team bits, lowest bit first (the
+    reduce-scatter's and the f64 path's xor tree: the same pairs)."""
+    parts = list(parts)
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
+
+
+def _emulate_rows_int8(tb, x):
+    """Kernel 3's arithmetic in numpy: per row (a hub row: per warp share)
+    the exponent decision of `int8_scale`; on the integer path W = m << (e -
+    t) times q summed by teams in int32 (checked to stay inside it), a chunk
+    of CHUNK slots at a time, the teams combined over their bits, and
+    f32(S * 2^t) * s (through f64 where 2^t is outside [2^-126, 2^96]) or, in
+    a hub share, the chunks' sums added in f64; on the f64 path v * q summed
+    in f64 in the teams' order and their xor tree; a hub's warps' exact sums
+    added in f64 in warp order. Returns (out, the rows on the f64 path)."""
+    q, s = tsp.quantize_int8(torch.as_tensor(x))
+    q, s = q.numpy().astype(np.int64), s.numpy()
+    d = x.shape[1]
+    lanes_log2 = min(5, (-(-d // 16) - 1).bit_length())
+    teams = 32 >> lanes_log2
+    v_all = tb.vals.reshape(-1).bfloat16().float().numpy()
+    c_all = tb.cols.reshape(-1).numpy()
+    rs, re_ = tb.row_start.numpy(), tb.row_end.numpy()
+    out = np.zeros((tb.nrows, d), np.float32)
+    slow = []
+    for r in range(tb.nrows):
+        n = int(re_[r] - rs[r])
+        shares = int8_shares(n)
+        parts = []  # each warp's exact sum, as f64
+        for a, b in shares:
+            v, c = v_all[rs[r] + a: rs[r] + b], c_all[rs[r] + a: rs[r] + b]
+            t, fast = int8_scale(v)
+            order = _team_order(b - a, teams)
+            if fast:
+                m, e = int8_decode(v)
+                w = np.where(m == 0, 0, m * 2 ** np.clip(e - t, 0, 62))
+                assert np.abs(w).max(initial=0) < 2 ** 15  # dp2a's int16
+                assert len(shares) > 1 or b - a <= CHUNK  # a normal warp's row: one chunk
+                part = np.zeros(d, np.float64)
+                for c0 in range(0, max(b - a, 1), CHUNK):
+                    sums = []
+                    for sl in order:
+                        acc = np.zeros(d, np.int64)
+                        for j in sl:
+                            if c0 <= j < c0 + CHUNK:
+                                acc += w[j] * q[c[j]]
+                                assert np.abs(acc).max() < 2 ** 31
+                        sums.append(acc)
+                    total = _tree(sums)
+                    assert np.abs(total).max(initial=0) < 2 ** 31
+                    part += total.astype(np.float64) * 2.0 ** t
+                if len(shares) == 1:
+                    if -126 <= t <= 96:
+                        f = total.astype(np.float32) * np.float32(2.0 ** t)
+                    else:
+                        f = (total.astype(np.float64) * 2.0 ** t).astype(np.float32)
+                    out[r] = f * s
+                parts.append(part)
+            else:
+                slow.append(r)
+                sums = []
+                for sl in order:
+                    acc = np.zeros(d, np.float64)
+                    for j in sl:
+                        acc = acc + np.float64(v[j]) * q[c[j]]
+                    sums.append(acc)
+                parts.append(_tree(sums))
+                if len(shares) == 1:
+                    out[r] = parts[-1].astype(np.float32) * s
+        if len(shares) > 1:
+            total = parts[0].copy()
+            for p_ in parts[1:]:
+                total += p_
+            out[r] = total.astype(np.float32) * s
+    return out, sorted(set(slow))
+
+
+@pytest.mark.parametrize("d", [32, 128, 256, 544])
+@pytest.mark.parametrize("graph", ["random", "hub", "span", "span_dropped"])
+def test_rows_int8_walk_matches_plain_bit_for_bit(graph, d):
+    # kernel 3's integer sums (and its f64 path where a row's values span too
+    # many binades) give the plain version's bits: on the LastFM-like random
+    # stand-in, beside a hub row of 3000 slots, on rows at the integer path's
+    # widest range and one binade beyond it, empty rows, a zero column (s =
+    # 1e-12, q = 0), columns reaching q = +-127, and after edge dropout
+    if graph.startswith("span"):
+        shape, rows, cols, vals = span_graph()
+    else:
+        shape, rows, cols, vals, _ = _coo(graph)
+    tb = tsp.pack_blocked(rows, cols, vals, shape, device="cpu").replace(int8=True)
+    if graph == "span_dropped":
+        keep = np.random.default_rng(3).random(tb.vals.shape) < 0.8
+        tb = tb.replace(vals=tb.vals * torch.as_tensor(keep) / 0.8)
+    x = np.random.default_rng(d).standard_normal((shape[1], d)).astype(np.float32)
+    x[:, 2] = 1.0  # q = 127 throughout: the sums' largest magnitudes
+    x[:, 3] = 0.0
+    got, slow = _emulate_rows_int8(tb, x)
+    q, s = tsp.quantize_int8(torch.as_tensor(x))
+    assert float(s[3]) == np.float32(1e-12) and int(q[:, 3].abs().max()) == 0
+    assert int(q.max()) == 127 and int(q.min()) == -127 and int(q[:, 2].min()) == 127
+    want = tsp.blocked_spmm_reference(tb, torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    t, fast = int8_row_scales(tb)
+    assert sorted(np.nonzero(~fast)[0]) == slow
+    if graph == "span":
+        assert slow == SPAN_F64_ROWS and t[7] == -133 and t[11] == 97 and t[12] == -7
+        # row 12's shares: three chunks each, where one int32 sum would overflow at q = 127
+        n12 = int(tb.row_end[12] - tb.row_start[12])
+        assert all(2 * CHUNK < b - a for a, b in int8_shares(n12))
+        assert 255 * 2 ** MAX_SPAN * 127 * (n12 // 8) >= 2 ** 31
+    if graph == "hub":
+        assert tb.row_end[0] - tb.row_start[0] == 3000
+
+
+@pytest.mark.parametrize("n, span, fast", [(2, 0, True), (2, 7, True), (2, 8, False),
+                                           (64, 7, True), (64, 8, False), (512, 7, True),
+                                           (3000, 7, True), (3000, 9, False)])
+def test_int8_scale_at_its_bounds(n, span, fast):
+    # the integer path takes span <= 7 (W = m << span fits dp2a's int16)
+    # whatever the slots: an int32 sum of CHUNK slots stays exact (255 * 127
+    # * CHUNK * 2^7 < 2^31), and a hub warp flushes its sum every CHUNK slots
+    v = np.full(n, 1.0, np.float32)
+    v[-1] = -(2.0 ** span) * 1.9921875  # m = 255 at the top of the range
+    t, got = int8_scale(v)
+    assert (t, got) == (-7, fast)
+    # CHUNK: the most whole batches of 32 slots an int32 sum takes
+    assert 255 * 127 * CHUNK * 2 ** MAX_SPAN < 2 ** 31 <= 255 * 127 * (CHUNK + 32) * 2 ** MAX_SPAN
+    m, e = int8_decode(v)
+    assert m[-1] == -255 and e[-1] - t == span
 
 
 def test_wrapper_refuses_other_devices():
