@@ -521,6 +521,25 @@ SHARDED_MF = dict(embedding_size=64, batch_size=2048, lrate=0.05, eval_user_batc
 SHARDED_GCN = dict(dim=64, batch=2048, steps=5, lrate=0.05, n_layers=2)
 SHARDED_GCN_ATOL = 1e-5
 SHARDED_CLI_FLAGS = ["--mesh_data=2", "--mesh_model=2", "--shard_graph=on"]
+# phase 25's data split: on the (2, 2) mesh each data rank computes its share of every step's
+# batch (`ModelBundle.data_split`). These models at the full widths of the earlier phases, at
+# the LastFM shape, adjacencies replicated (the propagation runs whole on every rank, as in the
+# JAX mesh): the first SPLIT_STEPS steps of each phase within SPLIT_STEP_RTOL (the CPU test's
+# loss tolerance: tests/test_torch_sharded.py holds HGNN_HD3, whose bf16 operand rounds each data
+# rank's share of the cotangent on its own, at 1e-3) of one device's eager steps (the last
+# step's wall is the step time reported), the data ranks' shares of the first step's loss
+# differing and adding up to it within SPLIT_SHARE_RTOL, each rank's SpMM launches equal to one
+# device's, and a data rank's step FLOPs (`utils.profiling.cost_analysis`) at most
+# SPLIT_FLOPS_BOUND of one device's where the step is per-example work
+SPLIT_MODELS = {"SASRec": dict(SEQ_TRAIN, drop_rate=SEQ_DROPOUT["lastfm"]),
+                "CL4SRec": dict(SEQ_TRAIN, drop_rate=SEQ_DROPOUT["lastfm"]),
+                "KGAT": dict(KGAT_TRAIN), "SGL": dict(SGL_TRAIN),
+                # phase 8's: MODEL_DEFAULTS["HGNN_HD3"], the bf16 gathered operand
+                "HGNN_HD3": dict(compute_dtype="bfloat16", eval_user_batch=512)}
+SPLIT_STEPS = 3
+SPLIT_STEP_RTOL = {"HGNN_HD3": 1e-3}  # else 1e-4
+SPLIT_SHARE_RTOL = 1e-6
+SPLIT_FLOPS_BOUND = {("SASRec", "cf"): 0.6, ("CL4SRec", "cf"): 0.6, ("KGAT", "kg"): 0.6}
 
 
 def log(*a) -> None:
@@ -3622,6 +3641,12 @@ def _sharded_cases(graphs) -> dict:
     data = dict(SHAPES["lastfm"], with_kg=True)
     cases["khgrec"] = dict(kind="trainer", model="KHGRec", cfg=dict(KHGREC_TRAIN), data=data,
                            epochs=1, first_step=True, mesh=SHARDED_TRAIN_MESH)
+    for name, cfg in SPLIT_MODELS.items():
+        cases[f"split_{name}"] = dict(kind="trainer", model=name, cfg=cfg, data=data, epochs=1,
+                                      steps=SPLIT_STEPS, first_step=True, shard=False,
+                                      mesh=SHARDED_TRAIN_MESH)
+        cases[f"flops_{name}"] = dict(kind="step_flops", model=name, cfg=cfg, data=data,
+                                      mesh=SHARDED_TRAIN_MESH)
     # KHGRec's lookup of its user and item rows in the row-sharded entity table
     # (`table_lookup`), forward and backward, at the table's and the ids' shapes
     mats, d = graphs["lastfm"]["mats"], KHGREC_TRAIN["hyper_dim"]
@@ -3700,6 +3725,71 @@ def _dense_lightgcn(case) -> tuple[list, "np.ndarray"]:
     return losses, table.cpu().numpy()
 
 
+def _phase_split(cases, ranks, card: str) -> dict:
+    """Phase 25's data split (SPLIT_MODELS): each model's ranks against one device's eager
+    steps on the card, from the same seed; raises where a check fails."""
+    import numpy as np
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import segment_spmm as S
+    from hypergraph_diffusion_for_recommendation_tpu_torch.parallel.check import (
+        record_steps,
+        run_steps,
+        steps_on_host,
+    )
+
+    model = SHARDED_TRAIN_MESH[1]
+    out = {}
+    for name in SPLIT_MODELS:
+        c = cases[f"split_{name}"]
+        _, bundle, single = _single_trainer(name, c["cfg"], c["data"])
+        rec = record_steps(single, timed=True)
+        before = dict(S.LAUNCHES)
+        run_steps(single, SPLIT_STEPS)
+        single_launches = {k: v - before[k] for k, v in S.LAUNCHES.items() if v != before[k]}
+        rec = steps_on_host(rec)
+        del single, bundle
+        torch.cuda.empty_cache()
+        got = [r[f"split_{name}"] for r in ranks]
+        row = dict(card=card, data_split=[g["data_split"] for g in got])
+        for phase in [p for p in ("cf", "kg") if rec[p]]:
+            want = rec[phase]
+            shares = [g["steps"][f"{phase}_share"][0] for g in got]
+            flops = [r[f"flops_{name}"][phase] for r in ranks]
+            row[phase] = dict(
+                losses=want, step_ms=max(g["steps"][f"{phase}_ms"][-1] for g in got),
+                single_eager_step_ms=rec[f"{phase}_ms"][-1],
+                step_rel=max(_rel(g["steps"][phase], np.asarray(want)) for g in got),
+                shares=shares, differ=all(shares[m] != shares[model + m] for m in range(model)),
+                share_rel=max(abs(shares[m] + shares[model + m] - want[0]) / abs(want[0])
+                              for m in range(model)),
+                flops_data2=max(f["split"] for f in flops), flops_data1=flops[0]["whole"],
+                flops_ratio=max(f["split"] / f["whole"] for f in flops) if flops[0]["whole"]
+                else None)
+        row["launches"] = [g["epoch_launches"] for g in got]
+        row["single_launches"] = single_launches
+        out[name] = row
+        log(f"[sharded] data split {name} on {SHARDED_TRAIN_MESH} ({card}): "
+            + "; ".join(f"{p}: {SPLIT_STEPS} steps within {row[p]['step_rel']:.3g} of one device, "
+                        f"first-step shares {row[p]['shares']} add up within "
+                        f"{row[p]['share_rel']:.3g}, a data rank's step FLOPs "
+                        f"{row[p]['flops_data2']:.4g} against one device's "
+                        f"{row[p]['flops_data1']:.4g} (ratio {row[p]['flops_ratio']}), the last "
+                        f"step {row[p]['step_ms']:.2f} ms on the mesh against "
+                        f"{row[p]['single_eager_step_ms']:.2f} ms eager on one device"
+                        for p in ("cf", "kg") if p in row)
+            + f"; SpMM launches a rank {row['launches'][0]}, one device {single_launches}")
+        rtol = SPLIT_STEP_RTOL.get(name, 1e-4)
+        bad = [p for p in ("cf", "kg") if p in row and (
+            row[p]["step_rel"] > rtol or not row[p]["differ"]
+            or row[p]["share_rel"] > SPLIT_SHARE_RTOL
+            or (row[p]["flops_ratio"] or 0.0) > SPLIT_FLOPS_BOUND.get((name, p), 1.0))]
+        if (bad or not all(row["data_split"])
+                or any(l != single_launches for l in row["launches"])):
+            raise AssertionError(f"data split {name}: {bad} {row}")
+    return out
+
+
 def _model_blocks(ranks, case, key):
     """A table from the model ranks' row blocks (data rank 0's), in model-rank order."""
     import numpy as np
@@ -3719,6 +3809,9 @@ def phase_sharded(graphs, card: str) -> dict:
         of elements equal bit for bit), the forward against the plain version on the card,
         each rank's layout bytes against the unsharded layout's, per-call times (a rank's
         kernel also with the card to itself, the other ranks waiting);
+      * the data split (SPLIT_MODELS, `_phase_split`): SASRec, CL4SRec, KGAT (both phases),
+        SGL and HGNN_HD3 on the (2, 2) mesh, each data rank computing its share of every
+        step's batch, against one device's eager steps;
       * KHGRec in bench.py's configuration on a (2, 2) mesh with the CF and KG adjacencies
         sharded: the first step's loss within SHARDED_STEP_RTOL and one epoch's within
         SHARDED_EPOCH_RTOL of the single-device eager trainer from the same seed, the two
@@ -3898,6 +3991,9 @@ def phase_sharded(graphs, card: str) -> dict:
             or any(s != {SHARDED_KHGREC_KERNEL: SHARDED_KHGREC_LAUNCHES} for s in step_launches)
             or kh[0]["sharded"] != ["user_entity_emb"]):
         raise AssertionError(f"sharded KHGRec: {out['khgrec']}")
+
+    # --- every model's batch over the data axis (SPLIT_MODELS)
+    out["split"] = _phase_split(cases, ranks, card)
 
     # --- MF's checkpoints across layouts
     saved = [r["mf_save"] for r in ranks]

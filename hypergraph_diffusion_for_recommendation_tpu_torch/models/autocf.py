@@ -36,6 +36,14 @@ torch-ops backward) and five more at a refresh (four for the seed scores,
 two of width 1, and one width-1 product for the ball). The random draws
 go through `_uniform`, `_randint` and `_choice` (capture-safe: `torch.rand`
 then `topk`), which tests replace with the JAX draws.
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes the per-example terms of its share of the batch
+(`parallel.mesh.data_share`): the score mean and the contrast's terms of
+its share's picks, each over every node's denominator; the L2 norms, the
+seed score and LRMRec's reconstruction, which read no batch row or couple
+the rows, are computed whole at weight 1 / data ranks. The subgraph
+refresh draws from tables, not the batch, so every rank draws alike.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from ..core.config import Config
 from ..core.types import with_new_vals
 from ..data.device import CFDeviceData
 from ..ops.losses import l2_reg_loss, unique_mask
+from ..parallel.mesh import data_ranks, data_share
 from ..ops.sparse import (
     gather_rows_hubs,
     renormalize_sym,
@@ -240,15 +249,18 @@ def _mask_subgraphs(generator: torch.Generator | None, cf: CFDeviceData, seeds: 
 
 
 def _contrast_reg(nodes: torch.Tensor, valid: torch.Tensor | None, embeds: torch.Tensor,
-                  embeds2: torch.Tensor | None = None) -> torch.Tensor:
+                  embeds2: torch.Tensor | None = None,
+                  rows: slice = slice(None)) -> torch.Tensor:
     """AutoCF's denominator-only contrast (AutoCF.py:131-139): the mean over
-    the (valid) picked nodes of log sum exp(pick . all)."""
-    pck = embeds[nodes]
+    the (valid) picked nodes of log sum exp(pick . all). `rows`: the picks
+    whose terms are added (a data rank's share); the mean stays over every
+    (valid) pick."""
+    pck = embeds[nodes[rows]]
     if embeds2 is None:
         scores = torch.log(torch.sum(torch.exp(pck @ embeds.T), dim=-1))
         vf = valid.to(scores.dtype)
-        return torch.sum(scores * vf) / torch.clamp(torch.sum(vf), min=1.0)
-    return torch.mean(torch.log(torch.sum(torch.exp(pck @ embeds2.T), dim=-1)))
+        return torch.sum(scores * vf[rows]) / torch.clamp(torch.sum(vf), min=1.0)
+    return torch.sum(torch.log(torch.sum(torch.exp(pck @ embeds2.T), dim=-1))) / nodes.shape[0]
 
 
 def _load_profiles(cfg: Config, n_users: int, n_items: int) -> np.ndarray:
@@ -280,7 +292,7 @@ def _check_shared_order(cf: CFDeviceData) -> None:
 
 
 def _build_autocf_like(name: str, use_profiles: bool):
-    def builder(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+    def builder(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
         _check_shared_order(cf)
         device = cf.edge_u.device
         profiles = (torch.as_tensor(_load_profiles(cfg, cf.n_users, cf.n_items), device=device)
@@ -313,25 +325,29 @@ def _build_autocf_like(name: str, use_profiles: bool):
 
         def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
             users, pos, neg = (t.long() for t in batch[:3])
+            share = data_share(mesh, users.shape[0])
+            rows = share.rows
             enc_adj = with_new_vals(cf.adj.fwd, extras["enc_vals"])
             dec = (extras["dec_rows"], extras["dec_cols"], extras["dec_valid"])
             recon = 0.0
             if use_profiles:
                 mego, seeds = module.masked_ego(generator, MASK_RATIO)
                 u_emb, i_emb = module(enc_adj, dec, mego)
-                recon = RECON_WEIGHT * module.reconstruct(torch.cat([u_emb, i_emb]), seeds,
-                                                          RE_TEMPERATURE)
+                recon = share.whole * RECON_WEIGHT * module.reconstruct(
+                    torch.cat([u_emb, i_emb]), seeds, RE_TEMPERATURE)
             else:
                 u_emb, i_emb = module(enc_adj, dec)
             ue, pe, ne = u_emb[users], i_emb[pos], i_emb[neg]
-            rec = -torch.mean(torch.sum(ue * pe, dim=-1))
-            reg = l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+            rec = -share.part * torch.mean(torch.sum(ue[rows] * pe[rows], dim=-1))
+            reg = share.whole * l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
             uu, um = unique_mask(users)
             iu, im = unique_mask(pos)
-            cl = ((_contrast_reg(uu, um, u_emb) + _contrast_reg(iu, im, i_emb)) * SSL_REG
-                  + _contrast_reg(users, None, u_emb, i_emb))
+            cl = ((_contrast_reg(uu, um, u_emb, rows=rows)
+                   + _contrast_reg(iu, im, i_emb, rows=rows)) * SSL_REG
+                  + _contrast_reg(users, None, u_emb, i_emb, rows))
             # the seed-score term, at the steps that refreshed (AutoCF.py:89-91)
-            lg = -extras["samp_score"] if step_branch(extras) == "refresh" else 0.0
+            lg = (-share.whole * extras["samp_score"] if step_branch(extras) == "refresh"
+                  else 0.0)
             loss = rec + reg + cl + lg + recon
             aux = {"rec_loss": rec.detach(), "cl_loss": cl.detach(), "reg_loss": reg.detach(),
                    "_new_extras": {"step": extras["step"] + 1}}
@@ -348,7 +364,7 @@ def _build_autocf_like(name: str, use_profiles: bool):
                            init=init, encode_eval=encode_eval, batch_loss=batch_loss,
                            update_extras=update_extras, step_branch=step_branch,
                            # the reference imports ReduceLROnPlateau, never builds it
-                           lr_plateau=False)
+                           lr_plateau=False, data_split=data_ranks(mesh) > 1)
 
     return builder
 

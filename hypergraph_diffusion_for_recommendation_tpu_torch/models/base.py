@@ -93,11 +93,11 @@ class ModelBundle:
     # buffers in place, which the graphs read
     epoch_update_extras: Optional[Callable[[Extras, torch.Generator], Extras]] = None
     # batch_loss returns this data rank's share of the global batch's loss
-    # (built for a mesh whose data axis is above 1: its per-example terms
-    # over `parallel.mesh.data_share`'s rows, so the data ranks' losses add
-    # up to the global one); the trainer then sums the gradients and the
-    # loss terms over the data group. False: every data rank computes the
-    # global batch's loss, and the data ranks run the same step
+    # (every builder sets it for a mesh whose data axis is above 1: the
+    # per-example work over `parallel.mesh.data_share`'s rows, so the data
+    # ranks' losses add up to the global one); the trainer then sums the
+    # gradients and the loss terms over the data group. False: built without
+    # a mesh, or for one data rank
     data_split: bool = False
     # sequential models carry padded sequence arrays (`data.sequence.SeqDeviceData`)
     # and switch the trainer to windowed batches (base/seq_recommender.py)
@@ -192,15 +192,14 @@ def build_model(cfg: Config, cf: CFDeviceData, kg: Optional[KGDeviceData] = None
                 social: Any = None, mesh: Any = None) -> ModelBundle:
     """`social` (a `data.social.SocialData`) goes to the model functions
     that take it (MHCN, SEPT); `mesh` (a `parallel.make_mesh` mesh) to
-    those that take it: MF, LightGCN and the KHGRec family split their
-    batch's per-example terms over its data axis (`ModelBundle.data_split`),
-    and KHGRec looks its entity rows up in the row-sharded table through the
-    explicit collective (`table_lookup`)."""
+    every one: each splits its batch's per-example work over the mesh's data
+    axis (`ModelBundle.data_split`), and KHGRec looks its entity rows up in
+    the row-sharded table through the explicit collective
+    (`table_lookup`)."""
     if cfg.model not in MODEL_REGISTRY:
         raise ValueError(f"Unknown model {cfg.model!r}. Registered: {sorted(MODEL_REGISTRY)}")
     import inspect
 
     fn = MODEL_REGISTRY[cfg.model]
-    takes = inspect.signature(fn).parameters
-    kw = {k: v for k, v in (("social", social), ("mesh", mesh)) if k in takes}
-    return fn(cfg, cf, kg, **kw)
+    kw = {"social": social} if "social" in inspect.signature(fn).parameters else {}
+    return fn(cfg, cf, kg, mesh=mesh, **kw)

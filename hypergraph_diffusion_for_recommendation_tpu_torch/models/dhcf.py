@@ -9,6 +9,12 @@ not chained, DHCF.py:176-181), and the dead fc_u / fc_i Linears are left
 out. Every product is an `spmm_pair` over `raw_int` (a kernel launch
 forward and one backward): a step launches 8K kernels, an encode 4K.
 Loss: BPR + L2 over the batch rows, divided by the batch size.
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes BPR over its share of the batch (`parallel.mesh.data_share`),
+from the propagation every rank runs whole (its draws included); the L2
+norms, which couple the batch's rows, are computed whole at weight
+1 / data ranks.
 """
 
 from __future__ import annotations
@@ -17,14 +23,15 @@ import torch
 
 from ..core.config import Config
 from ..data.device import CFDeviceData
-from ..ops.losses import bpr_loss, l2_reg_loss
+from ..ops.losses import bpr_l2_share
 from ..ops.sparse import two_hop
+from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, flax_init, register_model
 from .layers import Tables, leaky
 
 
 @register_model("DHCF")
-def build_dhcf(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+def build_dhcf(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
     module = Tables(cf.n_users, cf.n_items, cfg.hyper_dim).to(cf.edge_u.device)
     h = cf.raw_int
 
@@ -39,11 +46,10 @@ def build_dhcf(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
         u_emb, i_emb = encode()
-        ue, pe, ne = u_emb[users], i_emb[pos], i_emb[neg]
-        rec = bpr_loss(ue, pe, ne)
-        reg = l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+        rec, reg = bpr_l2_share(data_share(mesh, users.shape[0]), cfg.reg, cfg.batch_size,
+                                u_emb[users], i_emb[pos], i_emb[neg])
         return rec + reg, {"rec_loss": rec.detach(), "reg_loss": reg.detach()}
 
     return ModelBundle(name="DHCF", cfg=cfg, cf=cf, kg=None, uses_kg=False, module=module,
                        init=flax_init(module), encode_eval=torch.no_grad()(encode),
-                       batch_loss=batch_loss)
+                       batch_loss=batch_loss, data_split=data_ranks(mesh) > 1)

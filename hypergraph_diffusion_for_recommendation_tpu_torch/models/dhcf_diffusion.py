@@ -11,6 +11,12 @@ call it evidently intends, as in the JAX package. The convs are scatter
 means over the incidence's (row, col) lists: no SpMM kernel runs. Feature
 dropout (ED-HNN's input 0.6 and 0.5) draws from the trainer's generator
 in training. Loss: BPR + L2 over the batch rows, divided by the batch size.
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes BPR over its share of the batch (`parallel.mesh.data_share`),
+from the propagation every rank runs whole (its draws included); the L2
+norms, which couple the batch's rows, are computed whole at weight
+1 / data ranks.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ import torch
 
 from ..core.config import Config
 from ..data.device import CFDeviceData
-from ..ops.losses import bpr_loss, l2_reg_loss
+from ..ops.losses import bpr_l2_share
+from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, flax_init, register_model
 from .layers import EquivSetGNNScatter, FlaxNamed
 
@@ -48,16 +55,15 @@ class DHCFDiffusionModule(FlaxNamed):
 
 
 @register_model("DHCF_diffusion")
-def build_dhcf_diffusion(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+def build_dhcf_diffusion(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
     module = DHCFDiffusionModule(cf.n_users, cf.n_items, cfg.hyper_dim,
                                  cfg.n_layers).to(cf.edge_u.device)
 
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
         u_emb, i_emb = module(cf, True, generator)
-        ue, pe, ne = u_emb[users], i_emb[pos], i_emb[neg]
-        rec = bpr_loss(ue, pe, ne)
-        reg = l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+        rec, reg = bpr_l2_share(data_share(mesh, users.shape[0]), cfg.reg, cfg.batch_size,
+                                u_emb[users], i_emb[pos], i_emb[neg])
         return rec + reg, {"rec_loss": rec.detach(), "reg_loss": reg.detach()}
 
     @torch.no_grad()
@@ -66,4 +72,4 @@ def build_dhcf_diffusion(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
 
     return ModelBundle(name="DHCF_diffusion", cfg=cfg, cf=cf, kg=None, uses_kg=False,
                        module=module, init=flax_init(module), encode_eval=encode_eval,
-                       batch_loss=batch_loss)
+                       batch_loss=batch_loss, data_split=data_ranks(mesh) > 1)

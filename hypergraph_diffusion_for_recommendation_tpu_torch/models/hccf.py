@@ -13,6 +13,12 @@ JAX package's `models/hccf.py`; reference model/graph/HCCF.py:135-226):
   * loss = BPR + cl_rate * sum_k contrast(gcn_k.detach(), hgnn_k) over the
     batch's unique users and items (:59-68); the gradients are clipped to
     a global norm of 4 (:94), and the early-stopping patience doubles.
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes BPR over its share of the batch and the contrasts' terms of its
+share of the unique rows over every row's denominator
+(`parallel.mesh.data_share`), from the propagation every rank runs whole
+(its draws included).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from ..data.device import CFDeviceData
 from ..ops import sparse as _sp
 from ..ops.dropout import feature_dropout
 from ..ops.losses import bpr_loss, contrast_loss_pregathered, unique_mask
+from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, flax_init, register_model
 
 
@@ -68,15 +75,17 @@ class HCCFModule(nn.Module):
 
 
 @register_model("HCCF")
-def build_hccf(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+def build_hccf(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
     module = HCCFModule(cf.n_users, cf.n_items, cfg.embedding_size, cfg.hyper_dim, cfg.n_layers,
                         cfg.drop_rate).to(cf.edge_u.device)
     keep = 1.0 - cfg.drop_rate
 
     def batch_loss(extras: Extras, batch, edge_keys, generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
+        share = data_share(mesh, users.shape[0])
+        rows = share.rows
         u_emb, i_emb, gcn_h, hgnn_h = module(cf, keep, edge_keys, generator)
-        rec = bpr_loss(u_emb[users], i_emb[pos], i_emb[neg])
+        rec = share.part * bpr_loss(u_emb[users[rows]], i_emb[pos[rows]], i_emb[neg[rows]])
         uu, um = unique_mask(users)
         iu, im = unique_mask(pos)
         # one gather a view a layer, users and items stacked; the GCN side
@@ -86,8 +95,8 @@ def build_hccf(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
         ssl = 0.0
         for g, h in zip(gcn_h, hgnn_h):
             gv, hv = g.detach()[ids], h[ids]
-            ssl = ssl + contrast_loss_pregathered(gv[:b], hv[:b], um, cfg.temp)
-            ssl = ssl + contrast_loss_pregathered(gv[b:], hv[b:], im, cfg.temp)
+            ssl = ssl + contrast_loss_pregathered(gv[:b], hv[:b], um, cfg.temp, rows)
+            ssl = ssl + contrast_loss_pregathered(gv[b:], hv[b:], im, cfg.temp, rows)
         ssl = cfg.cl_rate * ssl
         return rec + ssl, {"rec_loss": rec.detach(), "cl_loss": ssl.detach()}
 
@@ -97,5 +106,5 @@ def build_hccf(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
 
     return ModelBundle(name="HCCF", cfg=cfg, cf=cf, kg=None, uses_kg=False, module=module,
                        init=flax_init(module), encode_eval=encode_eval, batch_loss=batch_loss,
-                       n_edge_keys=cfg.n_layers, grad_clip_norm=4.0,
-                       early_stop_patience_scale=2)
+                       n_edge_keys=cfg.n_layers, grad_clip_norm=4.0, early_stop_patience_scale=2,
+                       data_split=data_ranks(mesh) > 1)

@@ -14,6 +14,12 @@ extracts dynamic V/E lists from `nonzero(H > 0)` (:317-341); the static
 form is the masked dense scatter mean. Loss = BPR + cl_rate * the per-layer
 contrast of the detached GCN side against the hyper side; gradients
 clipped to a global norm of 4.
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes BPR over its share of the batch and the contrasts' terms of its
+share of the unique rows over every row's denominator
+(`parallel.mesh.data_share`), from the propagation every rank runs whole
+(its draws included).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from ..data.device import CFDeviceData
 from ..ops import sparse as _sp
 from ..ops.dropout import feature_dropout
 from ..ops.losses import bpr_loss, contrast_loss_pregathered, unique_mask
+from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, flax_init, register_model
 from .layers import DenseEquivSetGNN, FlaxNamed
 
@@ -75,15 +82,17 @@ class HCCFDiffusionModule(FlaxNamed):
 
 
 @register_model("HCCF_diffusion")
-def build_hccf_diffusion(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+def build_hccf_diffusion(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
     module = HCCFDiffusionModule(cf.n_users, cf.n_items, cfg.embedding_size, cfg.hyper_dim,
                                  cfg.n_layers, cfg.drop_rate).to(cf.edge_u.device)
     keep = 1.0 - cfg.drop_rate
 
     def batch_loss(extras: Extras, batch, edge_keys, generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
+        share = data_share(mesh, users.shape[0])
+        rows = share.rows
         u_emb, i_emb, gcn_h, hgnn_h = module(cf, keep, edge_keys, generator)
-        rec = bpr_loss(u_emb[users], i_emb[pos], i_emb[neg])
+        rec = share.part * bpr_loss(u_emb[users[rows]], i_emb[pos[rows]], i_emb[neg[rows]])
         uu, um = unique_mask(users)
         iu, im = unique_mask(pos)
         # one gather a view a layer, users and items stacked (as in HCCF)
@@ -92,8 +101,8 @@ def build_hccf_diffusion(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
         ssl = 0.0
         for g, h in zip(gcn_h, hgnn_h):
             gv, hv = g.detach()[ids], h[ids]
-            ssl = ssl + contrast_loss_pregathered(gv[:b], hv[:b], um, cfg.temp)
-            ssl = ssl + contrast_loss_pregathered(gv[b:], hv[b:], im, cfg.temp)
+            ssl = ssl + contrast_loss_pregathered(gv[:b], hv[:b], um, cfg.temp, rows)
+            ssl = ssl + contrast_loss_pregathered(gv[b:], hv[b:], im, cfg.temp, rows)
         ssl = cfg.cl_rate * ssl
         return rec + ssl, {"rec_loss": rec.detach(), "cl_loss": ssl.detach()}
 
@@ -103,4 +112,5 @@ def build_hccf_diffusion(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
 
     return ModelBundle(name="HCCF_diffusion", cfg=cfg, cf=cf, kg=None, uses_kg=False,
                        module=module, init=flax_init(module), encode_eval=encode_eval,
-                       batch_loss=batch_loss, n_edge_keys=cfg.n_layers, grad_clip_norm=4.0)
+                       batch_loss=batch_loss, n_edge_keys=cfg.n_layers, grad_clip_norm=4.0,
+                       data_split=data_ranks(mesh) > 1)

@@ -37,6 +37,13 @@ loss and leaves the view tables in the extras; the steps between run
 `prop_age` is a host integer, so choosing the branch reads nothing from
 the card (`ModelBundle.step_branch`), and neither loss reads anything back
 to the host, so both run inside a CUDA graph.
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes BPR over its share of the batch and the contrasts' terms of its
+share of the unique rows over every row's denominator
+(`parallel.mesh.data_share`), in the full and the cached step alike; the
+propagation (and its draws) runs whole on every rank, and the L2 norms are
+computed whole at weight 1 / data ranks.
 """
 
 from __future__ import annotations
@@ -46,7 +53,8 @@ from torch import nn
 
 from ..core.config import Config
 from ..data.device import AdjPair, CFDeviceData
-from ..ops.losses import bpr_loss, contrast_loss_pregathered, l2_reg_loss, unique_mask
+from ..ops.losses import bpr_l2_share, contrast_loss_pregathered, unique_mask
+from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, register_model
 from .layers import LN_EPS, EquivSetConvScatter, EquivSetGNN, FlaxNamed, HWNNLayer, hgcn_conv
 
@@ -143,7 +151,7 @@ class HDModule(nn.Module):
 
 
 def _build_hd_variant(name: str, conv_form: str, last_hgcn: bool, dual_view_default: bool):
-    def builder(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+    def builder(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
         if dual_view_default:
             use_local = cfg.mode != "group_only"
             use_group = cfg.mode != "local_only"
@@ -193,10 +201,10 @@ def _build_hd_variant(name: str, conv_form: str, last_hgcn: bool, dual_view_defa
             with cached propagation, aux["_new_extras"] holds this
             forward's tables."""
             users, pos, neg = (t.long() for t in batch[:3])
+            share = data_share(mesh, users.shape[0])
             (u_emb, i_emb), views = encode(True, edge_keys[0], generator)
-            ue, pe, ne = u_emb[users], i_emb[pos], i_emb[neg]
-            rec = bpr_loss(ue, pe, ne)
-            reg = l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+            rec, reg = bpr_l2_share(share, cfg.reg, cfg.batch_size, u_emb[users], i_emb[pos],
+                                    i_emb[neg])
             aux = {"rec_loss": rec.detach(), "reg_loss": reg.detach()}
             loss = rec + reg
             if use_ssl and len(views) == 2:
@@ -207,8 +215,8 @@ def _build_hd_variant(name: str, conv_form: str, last_hgcn: bool, dual_view_defa
                 b = users.shape[0]
                 lv = torch.cat([lu, li])[ids]
                 gv = torch.cat([gu, gi])[ids]
-                ssl = contrast_loss_pregathered(lv[:b], gv[:b], um, cfg.temp)
-                ssl = ssl + contrast_loss_pregathered(lv[b:], gv[b:], im, cfg.temp)
+                ssl = contrast_loss_pregathered(lv[:b], gv[:b], um, cfg.temp, share.rows)
+                ssl = ssl + contrast_loss_pregathered(lv[b:], gv[b:], im, cfg.temp, share.rows)
                 ssl = cfg.cl_rate * ssl
                 aux["cl_loss"] = ssl.detach()
                 loss = loss + ssl
@@ -228,6 +236,7 @@ def _build_hd_variant(name: str, conv_form: str, last_hgcn: bool, dual_view_defa
             tables (each view carries the ego residual, so the own-row
             component is a true Jacobian term)."""
             users, pos, neg = (t.long() for t in batch[:3])
+            share = data_share(mesh, users.shape[0])
             u_tab, i_tab = module.user_emb, module.item_emb
 
             def st(prop_rows, ego_rows):
@@ -236,8 +245,7 @@ def _build_hd_variant(name: str, conv_form: str, last_hgcn: bool, dual_view_defa
             ue = st(extras["prop_u"][users], u_tab[users])
             pe = st(extras["prop_i"][pos], i_tab[pos])
             ne = st(extras["prop_i"][neg], i_tab[neg])
-            rec = bpr_loss(ue, pe, ne)
-            reg = l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+            rec, reg = bpr_l2_share(share, cfg.reg, cfg.batch_size, ue, pe, ne)
             aux = {"rec_loss": rec.detach(), "reg_loss": reg.detach()}
             loss = rec + reg
             if ssl_two_views:
@@ -247,8 +255,8 @@ def _build_hd_variant(name: str, conv_form: str, last_hgcn: bool, dual_view_defa
                 gu_v = st(extras["prop_gu"][uu], u_tab[uu])
                 li_v = st(extras["prop_li"][iu], i_tab[iu])
                 gi_v = st(extras["prop_gi"][iu], i_tab[iu])
-                ssl = contrast_loss_pregathered(lu_v, gu_v, um, cfg.temp)
-                ssl = ssl + contrast_loss_pregathered(li_v, gi_v, im, cfg.temp)
+                ssl = contrast_loss_pregathered(lu_v, gu_v, um, cfg.temp, share.rows)
+                ssl = ssl + contrast_loss_pregathered(li_v, gi_v, im, cfg.temp, share.rows)
                 ssl = cfg.cl_rate * ssl
                 aux["cl_loss"] = ssl.detach()
                 loss = loss + ssl
@@ -270,7 +278,8 @@ def _build_hd_variant(name: str, conv_form: str, last_hgcn: bool, dual_view_defa
 
         return ModelBundle(name=name, cfg=cfg, cf=cf, kg=None, uses_kg=False, module=module,
                            init=init, encode_eval=encode_eval, batch_loss=batch_loss,
-                           n_edge_keys=1, step_branch=step_branch)
+                           n_edge_keys=1, step_branch=step_branch,
+                           data_split=data_ranks(mesh) > 1)
 
     return builder
 

@@ -10,6 +10,12 @@ Training drops the adjacency's edges with one key a step (`n_edge_keys`
 1) and the transformer's feature dropout draws from the trainer's
 generator. The attention is [heads, N, N] over all U + I rows: stock
 matmuls and a softmax, as XLA computes it.
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes BPR over its share of the batch (`parallel.mesh.data_share`),
+from the propagation every rank runs whole (its draws included); the L2
+norms, which couple the batch's rows, are computed whole at weight
+1 / data ranks.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ from torch import nn
 
 from ..core.config import Config
 from ..data.device import CFDeviceData
-from ..ops.losses import bpr_loss, l2_reg_loss
+from ..ops.losses import bpr_l2_share
+from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, flax_init, register_model
 from .layers import FlaxNamed, TransformerEncoderLayer, hgcn_conv
 
@@ -55,7 +62,7 @@ class HGCNModule(FlaxNamed):
 
 
 @register_model("HGCN")
-def build_hgcn(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+def build_hgcn(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
     module = HGCNModule(cf.n_users, cf.n_items, cfg.hyper_dim, cfg.n_layers, cfg.p,
                         cfg.drop_rate).to(cf.edge_u.device)
     keep = 1.0 - cfg.drop_rate
@@ -63,11 +70,10 @@ def build_hgcn(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
     def batch_loss(extras: Extras, batch, edge_keys, generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
         u_emb, i_emb = module(cf, keep, edge_keys[0], generator)
-        ue, pe, ne = u_emb[users], i_emb[pos], i_emb[neg]
-        rec = bpr_loss(ue, pe, ne)
-        reg = l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+        rec, reg = bpr_l2_share(data_share(mesh, users.shape[0]), cfg.reg, cfg.batch_size,
+                                u_emb[users], i_emb[pos], i_emb[neg])
         return rec + reg, {"rec_loss": rec.detach(), "reg_loss": reg.detach()}
 
     return ModelBundle(name="HGCN", cfg=cfg, cf=cf, kg=None, uses_kg=False, module=module,
                        init=flax_init(module), encode_eval=torch.no_grad()(lambda extras: module(cf)),
-                       batch_loss=batch_loss, n_edge_keys=1)
+                       batch_loss=batch_loss, n_edge_keys=1, data_split=data_ranks(mesh) > 1)

@@ -25,6 +25,14 @@ fixed-order segment sum over the triple list, in either phase and in the
 encode. The KG loss's relation rows go through `kg_common.relation_lookup`,
 a one-hot matmul (a KG batch holds runs of thousands of one relation id,
 which the index backward would add one after another).
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes the per-example terms of its share of each batch
+(`parallel.mesh.data_share`): in the CF phase the scores and row means of
+its share of the (user, pos, neg) rows, over the propagation every rank
+runs whole; in the KG phase its share of the triples, split before the
+relation lookup and the projections, which are the phase's whole work.
+Every term is a mean over rows, so the shares add up to the batch's loss.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from ..core.config import Config
 from ..data.device import CFDeviceData, KGDeviceData
 from ..ops.dropout import feature_dropout
 from ..ops.losses import l2_loss_mean
+from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, register_model
 from .kg_common import (
     att_matvec,
@@ -118,7 +127,7 @@ class KGATModule(nn.Module):
 
 
 @register_model("KGAT")
-def build_kgat(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
+def build_kgat(cfg: Config, cf: CFDeviceData, kg: KGDeviceData, mesh=None) -> ModelBundle:
     if kg is None:
         raise ValueError("KGAT requires knowledge data (use_knowledge=true)")
     device = cf.edge_u.device
@@ -135,6 +144,8 @@ def build_kgat(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
 
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
+        share = data_share(mesh, users.shape[0])
+        users, pos, neg = (t[share.rows] for t in (users, pos, neg))
         all_emb = module(kg, extras["att_vals"], True, generator)
         # one merged user/pos/neg row gather (one backward scatter)
         upn = all_emb[torch.cat([kg.user_idx[users], kg.item_idx[pos],
@@ -142,12 +153,13 @@ def build_kgat(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
         u_emb, p_emb, n_emb = upn.chunk(3)
         pos_score = torch.sum(u_emb * p_emb, dim=1)
         neg_score = torch.sum(u_emb * n_emb, dim=1)
-        cf_loss = torch.mean(-torch.nn.functional.logsigmoid(pos_score - neg_score))
-        l2 = l2_loss_mean(u_emb) + l2_loss_mean(p_emb) + l2_loss_mean(n_emb)
+        cf_loss = share.part * torch.mean(-torch.nn.functional.logsigmoid(pos_score - neg_score))
+        l2 = share.part * (l2_loss_mean(u_emb) + l2_loss_mean(p_emb) + l2_loss_mean(n_emb))
         return cf_loss + cfg.reg * l2, {"rec_loss": cf_loss.detach()}
 
     def kg_batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
-        h, r, pos_t, neg_t = (t.long() for t in batch[:4])
+        share = data_share(mesh, batch[0].shape[0])
+        h, r, pos_t, neg_t = (t[share.rows].long() for t in batch[:4])
         r_emb = relation_lookup(module.relation_embed, r)
         # one merged h/pos/neg gather and one batched projection (same r)
         proj3 = project_by_relation(module.entity_user_embed[torch.cat([h, pos_t, neg_t])],
@@ -155,9 +167,9 @@ def build_kgat(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
         r_mul_h, r_mul_pos, r_mul_neg = proj3.chunk(3)
         pos_score = torch.sum(torch.square(r_mul_h + r_emb - r_mul_pos), dim=1)
         neg_score = torch.sum(torch.square(r_mul_h + r_emb - r_mul_neg), dim=1)
-        kg_loss = torch.mean(-torch.nn.functional.logsigmoid(neg_score - pos_score))
-        l2 = (l2_loss_mean(r_mul_h) + l2_loss_mean(r_emb)
-              + l2_loss_mean(r_mul_pos) + l2_loss_mean(r_mul_neg))
+        kg_loss = share.part * torch.mean(-torch.nn.functional.logsigmoid(neg_score - pos_score))
+        l2 = share.part * (l2_loss_mean(r_mul_h) + l2_loss_mean(r_emb)
+                           + l2_loss_mean(r_mul_pos) + l2_loss_mean(r_mul_neg))
         return cfg.alpha * (kg_loss + cfg.reg_kg * l2), {"kg_loss": kg_loss.detach()}
 
     @torch.no_grad()
@@ -174,4 +186,4 @@ def build_kgat(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
     return ModelBundle(name="KGAT", cfg=cfg, cf=cf, kg=kg, uses_kg=True, module=module,
                        init=init, encode_eval=encode_eval, batch_loss=batch_loss,
                        kg_batch_loss=kg_batch_loss, epoch_update_extras=epoch_update_extras,
-                       alternating=True, grad_clip_norm=4.0)
+                       alternating=True, grad_clip_norm=4.0, data_split=data_ranks(mesh) > 1)

@@ -16,6 +16,14 @@ JAX package wrote compact forms of the papers' mechanisms):
 The KG segment means run over the sorted `att_*` edge list; its pads
 (head == n_entities) clamp into the last entity with a zero message, and
 count in that entity's mean, as in JAX.
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes BPR over its share of the batch and KGCL's InfoNCE terms of its
+share of the unique rows over every row's denominator
+(`parallel.mesh.data_share`), from the propagation every rank runs whole
+(the views' edge dropout included, keyed alike on every rank); the L2
+norms and KGIN's intent independence, which reads no batch row, are
+computed whole at weight 1 / data ranks.
 """
 
 from __future__ import annotations
@@ -25,8 +33,9 @@ from torch import nn
 
 from ..core.config import Config
 from ..data.device import CFDeviceData, KGDeviceData
-from ..ops.losses import bpr_loss, info_nce_masked, l2_reg_loss, unique_mask
+from ..ops.losses import bpr_l2_share, info_nce_masked, unique_mask
 from ..ops.sparse import gather_rows_hubs, scatter_sum_hubs, spmm_pair
+from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, flax_init, register_model
 
 N_INTENTS = 4
@@ -76,7 +85,7 @@ class KGINModule(nn.Module):
 
 
 @register_model("KGIN")
-def build_kgin(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
+def build_kgin(cfg: Config, cf: CFDeviceData, kg: KGDeviceData, mesh=None) -> ModelBundle:
     if kg is None:
         raise ValueError("KGIN requires knowledge data")
     module = KGINModule(cf.n_users, kg.n_entities, kg.n_relations, cfg.embedding_size,
@@ -84,15 +93,15 @@ def build_kgin(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
 
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
+        share = data_share(mesh, users.shape[0])
         u_emb, i_emb, intents = module(cf, kg)
-        ue, pe, ne = u_emb[users], i_emb[pos], i_emb[neg]
-        rec = bpr_loss(ue, pe, ne)
-        reg = l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+        rec, reg = bpr_l2_share(share, cfg.reg, cfg.batch_size, u_emb[users], i_emb[pos],
+                                i_emb[neg])
         # intent independence: mean pairwise |cosine| (a KGIN eq. 10 variant)
         z = intents / torch.clamp(torch.linalg.vector_norm(intents, dim=1, keepdim=True),
                                   min=1e-12)
         k = z.shape[0]
-        ind = cfg.cl_rate * ((torch.abs(z @ z.T).sum() - k) / max(k * (k - 1), 1))
+        ind = share.whole * cfg.cl_rate * ((torch.abs(z @ z.T).sum() - k) / max(k * (k - 1), 1))
         return rec + reg + ind, {"rec_loss": rec.detach(), "ind_loss": ind.detach()}
 
     @torch.no_grad()
@@ -100,7 +109,8 @@ def build_kgin(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
         return module(cf, kg)[:2]
 
     return ModelBundle(name="KGIN", cfg=cfg, cf=cf, kg=kg, uses_kg=True, module=module,
-                       init=flax_init(module), encode_eval=encode_eval, batch_loss=batch_loss)
+                       init=flax_init(module), encode_eval=encode_eval, batch_loss=batch_loss,
+                       data_split=data_ranks(mesh) > 1)
 
 
 class KGCLModule(nn.Module):
@@ -131,7 +141,7 @@ class KGCLModule(nn.Module):
 
 
 @register_model("KGCL")
-def build_kgcl(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
+def build_kgcl(cfg: Config, cf: CFDeviceData, kg: KGDeviceData, mesh=None) -> ModelBundle:
     if kg is None:
         raise ValueError("KGCL requires knowledge data")
     module = KGCLModule(cf.n_users, cf.n_items, kg.n_entities, kg.n_relations,
@@ -140,16 +150,16 @@ def build_kgcl(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
 
     def batch_loss(extras: Extras, batch, edge_keys, generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
+        share = data_share(mesh, users.shape[0])
         u_emb, i_emb = module(cf, kg)
-        ue, pe, ne = u_emb[users], i_emb[pos], i_emb[neg]
-        rec = bpr_loss(ue, pe, ne)
-        reg = l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+        rec, reg = bpr_l2_share(share, cfg.reg, cfg.batch_size, u_emb[users], i_emb[pos],
+                                i_emb[neg])
         u1, i1 = module(cf, kg, keep, edge_keys[0])
         u2, i2 = module(cf, kg, keep, edge_keys[1])
         uu, um = unique_mask(users)
         iu, im = unique_mask(pos)
-        cl = info_nce_masked(u1[uu], u2[uu], um, cfg.temp)
-        cl = cfg.cl_rate * (cl + info_nce_masked(i1[iu], i2[iu], im, cfg.temp))
+        cl = info_nce_masked(u1[uu], u2[uu], um, cfg.temp, share.rows)
+        cl = cfg.cl_rate * (cl + info_nce_masked(i1[iu], i2[iu], im, cfg.temp, share.rows))
         return rec + reg + cl, {"rec_loss": rec.detach(), "cl_loss": cl.detach()}
 
     @torch.no_grad()
@@ -158,4 +168,4 @@ def build_kgcl(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
 
     return ModelBundle(name="KGCL", cfg=cfg, cf=cf, kg=kg, uses_kg=True, module=module,
                        init=flax_init(module), encode_eval=encode_eval, batch_loss=batch_loss,
-                       n_edge_keys=2)
+                       n_edge_keys=2, data_split=data_ranks(mesh) > 1)

@@ -62,7 +62,7 @@ from torch import nn
 from ..core.config import Config
 from ..data.device import AdjPair, CFDeviceData, KGDeviceData, blockdiag_pair
 from ..ops import sparse as _sp
-from ..ops.losses import bpr_loss, contrast_loss_pregathered, l2_reg_loss, unique_mask
+from ..ops.losses import bpr_l2_share, contrast_loss_pregathered, l2_reg_loss, unique_mask
 from ..parallel.mesh import MODEL_AXIS, axis_size, data_ranks, data_share, local_table
 from .base import Extras, ModelBundle, register_model
 from .kg_common import (
@@ -336,9 +336,8 @@ def _build_khgrec_like(name: str, use_self_att: bool = False, force_no_ssl: bool
             n_users = cf.n_users
             upn = torch.cat([u_cf, fused])[torch.cat([users, n_users + pos, n_users + neg])]
             ue, pe, ne = upn.chunk(3)
-            rows = share.rows
-            rec = share.part * bpr_loss(ue[rows], pe[rows], ne[rows])
-            cf_loss = rec + share.whole * l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+            rec, reg = bpr_l2_share(share, cfg.reg, cfg.batch_size, ue, pe, ne)
+            cf_loss = rec + reg
             kg_loss = transr_loss(ent_kg[torch.cat([h, pt, nt])], r, kg_share)
             loss = cf_loss + kg_loss
             # scored from THIS forward's KG embeddings, without gradient
@@ -387,9 +386,8 @@ def _build_khgrec_like(name: str, use_self_att: bool = False, force_no_ssl: bool
             ue = st(extras["prop_u"][users], ego_u)
             pe = st(extras["prop_fused"][pos], ego_p)
             ne = st(extras["prop_fused"][neg], ego_n)
-            rows = share.rows
-            rec = share.part * bpr_loss(ue[rows], pe[rows], ne[rows])
-            cf_loss = rec + share.whole * l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+            rec, reg = bpr_l2_share(share, cfg.reg, cfg.batch_size, ue, pe, ne)
+            cf_loss = rec + reg
             hpn = torch.cat([h, pt, nt])
             kg_loss = transr_loss(st(extras["prop_ent"][hpn], table[hpn]), r, kg_share)
             loss = cf_loss + kg_loss

@@ -19,6 +19,13 @@ relation matrices; its entity gathers hold long runs of one id and sum
 their backward through the hub-safe `gather_rows_hubs` (`ops.sparse`; on
 the CPU plain indexing). KTUP's relation rows are one-hot matmuls
 (`kg_common.relation_lookup`).
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes the per-example terms of its share of the batch
+(`parallel.mesh.data_share`): KTUP's CF terms over its share of the CF
+batch and its KG terms over its share of the KG batch, RippleNet's ripple
+projections and scores over its share's users; the L2 norms, which couple
+the batch's rows, are computed whole at weight 1 / data ranks.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from ..core.config import Config
 from ..data.device import CFDeviceData, KGDeviceData
 from ..ops.losses import l2_reg_loss
 from ..ops.sparse import gather_rows_hubs
+from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, flax_init, register_model
 from .kg_common import project_by_relation, relation_lookup
 
@@ -53,7 +61,7 @@ def _transh_project(e: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 @register_model("KTUP")
-def build_ktup(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
+def build_ktup(cfg: Config, cf: CFDeviceData, kg: KGDeviceData, mesh=None) -> ModelBundle:
     if kg is None:
         raise ValueError("KTUP requires knowledge data")
     m = KTUPModule(cf.n_users, kg.n_entities, kg.n_relations,
@@ -62,20 +70,25 @@ def build_ktup(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
 
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos, neg, h, r, pt, nt = (t.long() for t in batch)
+        share, kg_share = data_share(mesh, users.shape[0]), data_share(mesh, h.shape[0])
         item_emb = m.entity_emb[item_ids]
-        ue = m.user_emb[users]
+        ue, pe, ne = m.user_emb[users], item_emb[pos], item_emb[neg]
+        reg = share.whole * l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+        rows = share.rows
+        ue = ue[rows]
         # soft preference: attention over relations (KTUP eq. 5-6)
         att = torch.softmax(ue @ m.pref_emb.T, dim=1)  # [B, R]
         p_vec = att @ m.pref_emb
         p_norm = att @ m.relation_norm
         u_proj = _transh_project(ue, p_norm)
-        pos_proj = _transh_project(item_emb[pos], p_norm)
-        neg_proj = _transh_project(item_emb[neg], p_norm)
+        pos_proj = _transh_project(pe[rows], p_norm)
+        neg_proj = _transh_project(ne[rows], p_norm)
         pos_s = -torch.sum(torch.abs(u_proj + p_vec - pos_proj), dim=1)
         neg_s = -torch.sum(torch.abs(u_proj + p_vec - neg_proj), dim=1)
-        cf_loss = torch.mean(torch.nn.functional.softplus(1.0 - pos_s + neg_s))
+        cf_loss = share.part * torch.mean(torch.nn.functional.softplus(1.0 - pos_s + neg_s))
 
         # TransH KG loss on the batch triples
+        h, r, pt, nt = (t[kg_share.rows] for t in (h, r, pt, nt))
         w_r = relation_lookup(m.relation_norm, r)
         h_p = _transh_project(m.entity_emb[h], w_r)
         pt_p = _transh_project(m.entity_emb[pt], w_r)
@@ -83,9 +96,7 @@ def build_ktup(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
         d_r = relation_lookup(m.relation_emb, r)
         pos_k = -torch.sum(torch.abs(h_p + d_r - pt_p), dim=1)
         neg_k = -torch.sum(torch.abs(h_p + d_r - nt_p), dim=1)
-        kg_loss = torch.mean(torch.nn.functional.softplus(1.0 - pos_k + neg_k))
-
-        reg = l2_reg_loss(cfg.reg, ue, item_emb[pos], item_emb[neg]) / cfg.batch_size
+        kg_loss = kg_share.part * torch.mean(torch.nn.functional.softplus(1.0 - pos_k + neg_k))
         loss = cf_loss + cfg.alpha * kg_loss + reg
         return loss, {"rec_loss": cf_loss.detach(), "kg_loss": kg_loss.detach()}
 
@@ -98,7 +109,8 @@ def build_ktup(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
         return m.user_emb + att @ m.pref_emb, m.entity_emb[item_ids]
 
     return ModelBundle(name="KTUP", cfg=cfg, cf=cf, kg=kg, uses_kg=True, module=m,
-                       init=flax_init(m), encode_eval=encode_eval, batch_loss=batch_loss)
+                       init=flax_init(m), encode_eval=encode_eval, batch_loss=batch_loss,
+                       data_split=data_ranks(mesh) > 1)
 
 
 # ----------------------------------------------------------- RippleNet
@@ -166,8 +178,8 @@ class RippleNetModule(nn.Module):
         self.relation_mat = nn.Parameter(torch.empty(n_relations, dim, dim))
 
     def forward(self, kg: KGDeviceData, ripple: torch.Tensor):
-        """(item table [I, d], R_r h [U, H, M, d], t [U, H, M, d]) over the
-        ripple sets [U, H, M, 3]."""
+        """(item table [I, d], R_r h [N, H, M, d], t [N, H, M, d]) over N
+        users' ripple sets [N, H, M, 3] (every user's, or a batch's)."""
         ent = self.entity_emb
         item_emb = ent[kg.item_idx.long()]
         lead = ripple.shape[:-1]
@@ -186,7 +198,7 @@ def _user_repr(rh_proj: torch.Tensor, rt: torch.Tensor, v: torch.Tensor) -> torc
 
 
 @register_model("HKGRippleNet")
-def build_ripplenet(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBundle:
+def build_ripplenet(cfg: Config, cf: CFDeviceData, kg: KGDeviceData, mesh=None) -> ModelBundle:
     if kg is None:
         raise ValueError("RippleNet requires knowledge data")
     module = RippleNetModule(kg.n_entities, kg.n_relations,
@@ -195,15 +207,17 @@ def build_ripplenet(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBun
 
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
-        item_emb, rh_proj, rt = module(kg, ripple)
-        rh_b, rt_b = rh_proj[users], rt[users]
+        share = data_share(mesh, users.shape[0])
+        rows = share.rows
+        # the ripple sets of the share's users only
+        item_emb, rh_b, rt_b = module(kg, ripple[users[rows]])
         v_pos, v_neg = item_emb[pos], item_emb[neg]
-        s_pos = torch.sum(_user_repr(rh_b, rt_b, v_pos) * v_pos, dim=1)
-        s_neg = torch.sum(_user_repr(rh_b, rt_b, v_neg) * v_neg, dim=1)
+        s_pos = torch.sum(_user_repr(rh_b, rt_b, v_pos[rows]) * v_pos[rows], dim=1)
+        s_neg = torch.sum(_user_repr(rh_b, rt_b, v_neg[rows]) * v_neg[rows], dim=1)
         # BCE: clicked 1, negative 0, with the JAX package's +1e-8 inside the logs
-        loss = -torch.mean(torch.log(torch.sigmoid(s_pos) + 1e-8)
-                           + torch.log(1 - torch.sigmoid(s_neg) + 1e-8))
-        reg = l2_reg_loss(cfg.reg, v_pos, v_neg) / cfg.batch_size
+        loss = -share.part * torch.mean(torch.log(torch.sigmoid(s_pos) + 1e-8)
+                                        + torch.log(1 - torch.sigmoid(s_neg) + 1e-8))
+        reg = share.whole * l2_reg_loss(cfg.reg, v_pos, v_neg) / cfg.batch_size
         return loss + reg, {"rec_loss": loss.detach()}
 
     @torch.no_grad()
@@ -216,4 +230,5 @@ def build_ripplenet(cfg: Config, cf: CFDeviceData, kg: KGDeviceData) -> ModelBun
         return torch.einsum("uhm,uhmd->ud", probs, rt), item_emb
 
     return ModelBundle(name="HKGRippleNet", cfg=cfg, cf=cf, kg=kg, uses_kg=True, module=module,
-                       init=flax_init(module), encode_eval=encode_eval, batch_loss=batch_loss)
+                       init=flax_init(module), encode_eval=encode_eval, batch_loss=batch_loss,
+                       data_split=data_ranks(mesh) > 1)

@@ -15,7 +15,7 @@ import torch
 
 from ..core.config import Config
 from ..data.device import CFDeviceData
-from ..ops.losses import bpr_loss, l2_reg_loss
+from ..ops.losses import bpr_l2_share
 from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, flax_init, register_model
 from .layers import Tables, gcn_prop
@@ -49,12 +49,8 @@ def build_lightgcn(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBu
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
         u_emb, i_emb = encode()
-        ue, pe, ne = u_emb[users], i_emb[pos], i_emb[neg]
-        share = data_share(mesh, users.shape[0])
-        rows = share.rows
-        rec = share.part * bpr_loss(ue[rows], pe[rows], ne[rows])
-        # the L2 norms (not squared) couple the batch's rows: whole
-        reg = share.whole * l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+        rec, reg = bpr_l2_share(data_share(mesh, users.shape[0]), cfg.reg, cfg.batch_size,
+                                u_emb[users], i_emb[pos], i_emb[neg])
         return rec + reg, {"rec_loss": rec.detach(), "reg_loss": reg.detach()}
 
     return ModelBundle(name="LightGCN", cfg=cfg, cf=cf, kg=None, uses_kg=False, module=module,

@@ -22,6 +22,15 @@ The draws (dropout's keep masks, the augmentations' uniforms and choices)
 come from the generator the trainer passes, through `_keep_mask`,
 `_uniform` and `_randint`; torch cannot reproduce JAX's streams, so tests
 replace these functions and the JAX calls with one numpy draw.
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+runs the encoder on its share of the batch's sequences
+(`parallel.mesh.data_share`), both of CL4SRec's views too. Its draws are
+the whole batch's, of which it takes its rows: the generator advances as
+on one device, and the ranks' masks are the one device's. The BCE's mean
+keeps the whole batch's count of valid positions; CL4SRec's InfoNCE adds
+its share's rows' terms over every row of the second view, which
+`gather_shares` brings from the other data ranks.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from ..data.device import CFDeviceData
 from ..data.sequence import SeqDeviceData, seq_device_data
 from ..ops.losses import info_nce
 from ..ops.sparse import gather_rows_hubs, scatter_sum
+from ..parallel.mesh import data_ranks, data_share, gather_shares
 from .base import ModelBundle, flax_init, register_model
 from .layers import LN_EPS, FlaxNamed, MultiHeadAttention
 
@@ -61,16 +71,24 @@ def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return gather_rows_hubs(table, ids.reshape(-1).long()).reshape(*ids.shape, table.shape[1])
 
 
+Whole = tuple[slice, int] | None  # (rows, n): x holds the rows `rows` of an n-row batch
+
+
 def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-             train: bool) -> torch.Tensor:
+             train: bool, whole: Whole = None) -> torch.Tensor:
     """flax `nn.Dropout` (`ops.dropout.feature_dropout`), its keep mask
-    from `_keep_mask`."""
+    from `_keep_mask`. `whole` = (rows, n): `x` holds the rows `rows` of an
+    n-row batch; the mask is drawn for the whole batch and its rows taken."""
     if not train or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    return torch.where(_keep_mask(tuple(x.shape), keep, generator, x.device), x / keep, 0.0)
+    if whole is None:
+        mask = _keep_mask(tuple(x.shape), keep, generator, x.device)
+    else:
+        mask = _keep_mask((whole[1],) + tuple(x.shape[1:]), keep, generator, x.device)[whole[0]]
+    return torch.where(mask, x / keep, 0.0)
 
 
 class CausalAttention(MultiHeadAttention):
@@ -115,15 +133,17 @@ class PointWiseFeedForward(FlaxNamed):
         self._new("Dense", nn.Linear(dim, dim))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        h = _dropout(self.Dense_0(x), self.dropout, generator, train)
-        h = _dropout(self.Dense_1(torch.relu(h)), self.dropout, generator, train)
+                generator: torch.Generator | None = None, whole: Whole = None) -> torch.Tensor:
+        h = _dropout(self.Dense_0(x), self.dropout, generator, train, whole)
+        h = _dropout(self.Dense_1(torch.relu(h)), self.dropout, generator, train, whole)
         return x + h
 
 
 class SASRecEncoder(FlaxNamed):
     """Returns (h [B, L, dim], the item table [n_items + 1, dim]); row 0 of
-    the table is the padding item."""
+    the table is the padding item. `whole` = (rows, n): the sequences are
+    the rows `rows` of an n-row batch, whose dropout masks are drawn whole
+    (`_dropout`)."""
 
     def __init__(self, n_items: int, dim: int, max_len: int, n_blocks: int = 2,
                  n_heads: int = 1, dropout: float = 0.2):
@@ -144,18 +164,18 @@ class SASRecEncoder(FlaxNamed):
         self.last_norm = self._new("LayerNorm", nn.LayerNorm(dim, eps=LN_EPS))
 
     def forward(self, seq: torch.Tensor, pos: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, whole: Whole = None):
         pad = (seq > 0)[..., None]
         scale = torch.full((), float(self.dim), device=seq.device).sqrt()
         x = _rows(self.item_emb, seq) * scale + _rows(self.pos_emb, pos)
-        x = _dropout(x, self.dropout, generator, train) * pad
+        x = _dropout(x, self.dropout, generator, train, whole) * pad
         length = seq.shape[1]
         causal = torch.tril(torch.ones(length, length, dtype=torch.bool, device=seq.device))
         mask = causal[None, None] & pad[:, None, None, :, 0]
         for ln_q, att, ln_ff, ff in self.blocks:
             q = getattr(self, ln_q)(x)
             x = q + getattr(self, att)(q, x, mask, train, generator)
-            x = getattr(self, ff)(getattr(self, ln_ff)(x), train, generator) * pad
+            x = getattr(self, ff)(getattr(self, ln_ff)(x), train, generator, whole) * pad
         return getattr(self, self.last_norm)(x), self.item_emb
 
 
@@ -225,7 +245,7 @@ def build_seq_from_cf(cf: CFDeviceData, max_len: int = 50) -> SeqDeviceData:
 
 
 def _build_sasrec_like(name: str, use_cl: bool):
-    def builder(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+    def builder(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
         seq_data = build_seq_from_cf(cf)
         module = SASRecEncoder(seq_data.n_items, cfg.embedding_size, seq_data.max_len,
                                n_blocks=cfg.n_layers, n_heads=1,
@@ -233,22 +253,30 @@ def _build_sasrec_like(name: str, use_cl: bool):
 
         def batch_loss(extras, batch, edge_keys=(), generator=None):
             seq, pos, y, neg, valid_row = batch
-            h, item_emb = module(seq, pos, True, generator)
-            pos_logits = torch.sum(h * _rows(item_emb, y), dim=-1)
-            neg_logits = torch.sum(h * _rows(item_emb, neg), dim=-1)
+            b = seq.shape[0]
+            rows = data_share(mesh, b).rows
+            whole = (rows, b) if data_ranks(mesh) > 1 else None
+            h, item_emb = module(seq[rows], pos[rows], True, generator, whole)
+            pos_logits = torch.sum(h * _rows(item_emb, y[rows]), dim=-1)
+            neg_logits = torch.sum(h * _rows(item_emb, neg[rows]), dim=-1)
             vf = ((y > 0) & valid_row[:, None]).to(h.dtype)
             bce = -(torch.log(torch.sigmoid(pos_logits) + 1e-24)
                     + torch.log(1.0 - torch.sigmoid(neg_logits) + 1e-24))
-            rec = torch.sum(bce * vf) / torch.clamp(torch.sum(vf), min=1.0)
+            rec = torch.sum(bce * vf[rows]) / torch.clamp(torch.sum(vf), min=1.0)
             aux = {"rec_loss": rec.detach()}
             loss = rec
             if use_cl:
                 seq_len = torch.sum((seq > 0).int(), dim=1)
                 s1, p1 = _seq_augment(seq, pos, seq_len, generator)
                 s2, p2 = _seq_augment(seq, pos, seq_len, generator)
-                h1, _ = module(s1, p1, True, generator)
-                h2, _ = module(s2, p2, True, generator)
-                cl = cfg.cl_rate * info_nce(_last_rep(h1, s1), _last_rep(h2, s2), cfg.temp)
+                s1, p1, s2, p2 = s1[rows], p1[rows], s2[rows], p2[rows]
+                h1, _ = module(s1, p1, True, generator, whole)
+                h2, _ = module(s2, p2, True, generator, whole)
+                # both views' rows of every data rank, in one gather
+                reps = gather_shares(torch.cat([_last_rep(h1, s1), _last_rep(h2, s2)], dim=1),
+                                     mesh, b)
+                v1, v2 = reps.chunk(2, dim=1)
+                cl = cfg.cl_rate * info_nce(v1, v2, cfg.temp, rows=rows)
                 aux["cl_loss"] = cl.detach()
                 loss = loss + cl
             return loss, aux
@@ -267,7 +295,7 @@ def _build_sasrec_like(name: str, use_cl: bool):
         return ModelBundle(
             name=name, cfg=cfg, cf=cf, kg=None, uses_kg=False, module=module,
             init=flax_init(module), encode_eval=encode_eval, batch_loss=batch_loss,
-            seq=seq_data, batch_kind="sequence",
+            seq=seq_data, batch_kind="sequence", data_split=data_ranks(mesh) > 1,
         )
 
     return builder

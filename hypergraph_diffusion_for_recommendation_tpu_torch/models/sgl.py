@@ -16,6 +16,12 @@ launches 3K kernels, an encode K.
 
 The Bernoulli draws go through `_keep_mask`, which tests replace with the
 JAX draws (torch cannot reproduce JAX's streams).
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes BPR over its share of the batch and the InfoNCE terms of its share
+of the unique-row buffer over every row's denominator
+(`parallel.mesh.data_share`); the L2 norms are computed whole at weight
+1 / data ranks. The views are drawn whole, once an epoch, on every rank.
 """
 
 from __future__ import annotations
@@ -25,8 +31,9 @@ import torch
 from ..core.config import Config
 from ..core.types import with_new_vals
 from ..data.device import CFDeviceData
-from ..ops.losses import bpr_loss, info_nce_masked, l2_reg_loss, unique_mask
+from ..ops.losses import bpr_l2_share, info_nce_masked, unique_mask
 from ..ops.sparse import renormalize_sym, spmm
+from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, flax_init, register_model
 from .layers import Tables
 
@@ -57,7 +64,7 @@ def _augmented_view_vals(generator: torch.Generator | None, cf: CFDeviceData, dr
 
 
 @register_model("SGL")
-def build_sgl(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+def build_sgl(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
     device = cf.edge_u.device
     module = Tables(cf.n_users, cf.n_items, cfg.embedding_size).to(device)
     tables_init = flax_init(module)
@@ -84,20 +91,21 @@ def build_sgl(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
         u_emb, i_emb = encode()
-        ue, pe, ne = u_emb[users], i_emb[pos], i_emb[neg]
-        rec = bpr_loss(ue, pe, ne)
-        reg = l2_reg_loss(cfg.reg, ue, pe, ne)
+        # the L2 is not divided by the batch (SGL.py)
+        rec, reg = bpr_l2_share(data_share(mesh, users.shape[0]), cfg.reg, 1, u_emb[users],
+                                i_emb[pos], i_emb[neg])
         u1, i1 = encode(extras["view1"])
         u2, i2 = encode(extras["view2"])
         uu, um = unique_mask(users)
         iu, im = unique_mask(pos)
         view1 = torch.cat([u1[uu], i1[iu]])
         view2 = torch.cat([u2[uu], i2[iu]])
-        cl = cfg.cl_rate * info_nce_masked(view1, view2, torch.cat([um, im]), cfg.temp)
+        cl = cfg.cl_rate * info_nce_masked(view1, view2, torch.cat([um, im]), cfg.temp,
+                                           data_share(mesh, view1.shape[0]).rows)
         return rec + reg + cl, {"rec_loss": rec.detach(), "cl_loss": cl.detach()}
 
     return ModelBundle(name="SGL", cfg=cfg, cf=cf, kg=None, uses_kg=False, module=module,
                        init=init, encode_eval=torch.no_grad()(lambda extras=None: encode()),
                        batch_loss=batch_loss, epoch_setup=epoch_setup, grad_clip_norm=4.0,
                        # the reference never steps a scheduler (a fixed-rate Adam)
-                       lr_plateau=False)
+                       lr_plateau=False, data_split=data_ranks(mesh) > 1)

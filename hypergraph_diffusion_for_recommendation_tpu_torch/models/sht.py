@@ -16,6 +16,13 @@
 and the hyperedge tables; "full" squares every parameter (the reference's
 calcRegLoss, :234-239). The sampled pairs come from `_sample_pairs`, from
 the generator the trainer passes.
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes both BPR terms and the batch rows' squares of the "batch"
+regulariser over its share of the batch (`parallel.mesh.data_share`), from
+the propagation every rank runs whole; the sampled pairs' self-supervised
+terms and the parameter squares, which read no batch row, are computed
+whole at weight 1 / data ranks (every rank samples the same pairs).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from torch.nn.functional import logsigmoid
 from ..core.config import Config
 from ..data.device import CFDeviceData
 from ..ops.losses import bpr_loss
+from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, flax_init, register_model
 from .lightgcn import propagate
 
@@ -59,7 +67,7 @@ class SHTModule(nn.Module):
 
 
 @register_model("SHT")
-def build_sht(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+def build_sht(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
     module = SHTModule(cf.n_users, cf.n_items, cfg.hyper_dim, cfg.n_layers,
                        cfg.hyperedge_num).to(cf.edge_u.device)
     edge_samp = int(0.1 * cf.adj.fwd.nnz)
@@ -70,16 +78,21 @@ def build_sht(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
 
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
+        share = data_share(mesh, users.shape[0])
+        b = users.shape[0]
+        users, pos, neg = (t[share.rows] for t in (users, pos, neg))
         embeds, hyper_u, hyper_i = module(cf)
         u_emb, i_emb = embeds[: cf.n_users], embeds[cf.n_users :]
         rows = (u_emb[users], i_emb[pos], i_emb[neg], hyper_u[users], hyper_i[pos], hyper_i[neg])
-        rec = bpr_loss(*rows[:3]) + bpr_loss(*rows[3:])
+        rec = share.part * (bpr_loss(*rows[:3]) + bpr_loss(*rows[3:]))
         if cfg.sht_reg == "full":
-            reg = cfg.reg * sum(torch.sum(torch.square(p)) for p in module.parameters())
+            reg = share.whole * cfg.reg * sum(torch.sum(torch.square(p))
+                                              for p in module.parameters())
         else:
             w = torch.sum(torch.square(module.user_hyper)) + torch.sum(
                 torch.square(module.item_hyper))
-            reg = cfg.reg * (sum(torch.sum(torch.square(e)) for e in rows) / users.shape[0] + w)
+            reg = cfg.reg * (sum(torch.sum(torch.square(e)) for e in rows) / b
+                             + share.whole * w)
         pck_u, pck_i = _sample_pairs(edge_samp, cf.n_users, cf.n_items, generator, users.device)
         s1 = torch.sum(hyper_u[pck_u] * hyper_i[pck_i], dim=-1)
         s2 = torch.sum(u_emb[pck_u] * i_emb[pck_i], dim=-1)
@@ -88,7 +101,7 @@ def build_sht(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
         t1, t2 = torch.sigmoid(d1).detach(), torch.sigmoid(d2).detach()
         ssl1 = -torch.mean(t2 * logsigmoid(d1) + (1 - t2) * logsigmoid(-d1))
         ssl2 = -torch.mean(t1 * logsigmoid(d2) + (1 - t1) * logsigmoid(-d2))
-        ssl = cfg.cl_rate * (ssl1 + ssl2)
+        ssl = share.whole * cfg.cl_rate * (ssl1 + ssl2)
         return rec + reg + ssl, {"rec_loss": rec.detach(), "cl_loss": ssl.detach(),
                                  "reg_loss": reg.detach()}
 
@@ -97,4 +110,5 @@ def build_sht(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
         return module(cf)[1:]
 
     return ModelBundle(name="SHT", cfg=cfg, cf=cf, kg=None, uses_kg=False, module=module,
-                       init=flax_init(module), encode_eval=encode_eval, batch_loss=batch_loss)
+                       init=flax_init(module), encode_eval=encode_eval, batch_loss=batch_loss,
+                       data_split=data_ranks(mesh) > 1)

@@ -22,6 +22,12 @@ The user-user matrices are built on the host with scipy at model build time
 and packed by `adj_pair_from_scipy` on the CF data's device, with the
 configuration's operand type and gather layout (`compute_dtype`,
 `gather_layout`), as `Recommender.build` packs the CF adjacency.
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes BPR over its share of the batch and the InfoNCE terms of its share
+of the unique users over every row's denominator
+(`parallel.mesh.data_share`), from the propagation every rank runs whole;
+the L2 norms are computed whole at weight 1 / data ranks.
 """
 
 from __future__ import annotations
@@ -34,8 +40,9 @@ from torch import nn
 from ..core.config import Config
 from ..data.device import AdjPair, CFDeviceData, adj_pair_from_scipy
 from ..data.normalize import normalize_graph_mat
-from ..ops.losses import bpr_loss, info_nce_masked, l2_reg_loss, unique_mask
+from ..ops.losses import bpr_l2_share, info_nce_masked, unique_mask
 from ..ops.sparse import spmm_pair
+from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, flax_init, register_model
 
 
@@ -114,7 +121,7 @@ class MHCNModule(nn.Module):
 
 
 @register_model("MHCN")
-def build_mhcn(cfg: Config, cf: CFDeviceData, kg=None, social=None) -> ModelBundle:
+def build_mhcn(cfg: Config, cf: CFDeviceData, kg=None, social=None, mesh=None) -> ModelBundle:
     if social is None:
         raise ValueError("MHCN requires social data (pass social=SocialData)")
     channels = _pairs(cfg, cf, social_channel_mats(cf, social.social_mat))
@@ -123,13 +130,13 @@ def build_mhcn(cfg: Config, cf: CFDeviceData, kg=None, social=None) -> ModelBund
 
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
+        share = data_share(mesh, users.shape[0])
         u_emb, i_emb, chans = module(cf, channels)
-        ue, pe, ne = u_emb[users], i_emb[pos], i_emb[neg]
-        rec = bpr_loss(ue, pe, ne)
-        reg = l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+        rec, reg = bpr_l2_share(share, cfg.reg, cfg.batch_size, u_emb[users], i_emb[pos],
+                                i_emb[neg])
         # hierarchical mutual information: the fused user against each channel
         uu, um = unique_mask(users)
-        ssl = sum(info_nce_masked(u_emb[uu], c[uu], um, cfg.temp) for c in chans)
+        ssl = sum(info_nce_masked(u_emb[uu], c[uu], um, cfg.temp, share.rows) for c in chans)
         ssl = cfg.cl_rate * ssl
         return rec + reg + ssl, {"rec_loss": rec.detach(), "cl_loss": ssl.detach()}
 
@@ -138,7 +145,8 @@ def build_mhcn(cfg: Config, cf: CFDeviceData, kg=None, social=None) -> ModelBund
         return module(cf, channels)[:2]
 
     return ModelBundle(name="MHCN", cfg=cfg, cf=cf, kg=None, uses_kg=False, module=module,
-                       init=flax_init(module), encode_eval=encode_eval, batch_loss=batch_loss)
+                       init=flax_init(module), encode_eval=encode_eval, batch_loss=batch_loss,
+                       data_split=data_ranks(mesh) > 1)
 
 
 class SEPTModule(nn.Module):
@@ -162,7 +170,7 @@ class SEPTModule(nn.Module):
 
 
 @register_model("SEPT")
-def build_sept(cfg: Config, cf: CFDeviceData, kg=None, social=None) -> ModelBundle:
+def build_sept(cfg: Config, cf: CFDeviceData, kg=None, social=None, mesh=None) -> ModelBundle:
     if social is None:
         raise ValueError("SEPT requires social data (pass social=SocialData)")
     views = _pairs(cfg, cf, sept_view_mats(cf, social.social_mat))
@@ -171,13 +179,13 @@ def build_sept(cfg: Config, cf: CFDeviceData, kg=None, social=None) -> ModelBund
 
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
+        share = data_share(mesh, users.shape[0])
         u_emb, i_emb, fr, sh = module(cf, views)
-        ue, pe, ne = u_emb[users], i_emb[pos], i_emb[neg]
-        rec = bpr_loss(ue, pe, ne)
-        reg = l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+        rec, reg = bpr_l2_share(share, cfg.reg, cfg.batch_size, u_emb[users], i_emb[pos],
+                                i_emb[neg])
         uu, um = unique_mask(users)
-        ssl = info_nce_masked(u_emb[uu], fr[uu], um, cfg.temp)
-        ssl = cfg.cl_rate * (ssl + info_nce_masked(u_emb[uu], sh[uu], um, cfg.temp))
+        ssl = info_nce_masked(u_emb[uu], fr[uu], um, cfg.temp, share.rows)
+        ssl = cfg.cl_rate * (ssl + info_nce_masked(u_emb[uu], sh[uu], um, cfg.temp, share.rows))
         return rec + reg + ssl, {"rec_loss": rec.detach(), "cl_loss": ssl.detach()}
 
     @torch.no_grad()
@@ -185,4 +193,5 @@ def build_sept(cfg: Config, cf: CFDeviceData, kg=None, social=None) -> ModelBund
         return module(cf)
 
     return ModelBundle(name="SEPT", cfg=cfg, cf=cf, kg=None, uses_kg=False, module=module,
-                       init=flax_init(module), encode_eval=encode_eval, batch_loss=batch_loss)
+                       init=flax_init(module), encode_eval=encode_eval, batch_loss=batch_loss,
+                       data_split=data_ranks(mesh) > 1)

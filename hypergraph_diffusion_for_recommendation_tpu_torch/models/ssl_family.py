@@ -23,6 +23,15 @@ NCL's initial centroids) goes through one small function here
 generator the trainer passes (on the card, registered with the step
 graph); torch cannot reproduce JAX's streams, so tests replace these
 functions and the JAX calls with one numpy draw.
+
+Built for a mesh whose data axis is above 1 (`data_split`), a data rank
+computes the per-example terms of its share of the batch
+(`parallel.mesh.data_share`) over the tables every rank propagates whole:
+BPR and the alignment and regression means over its share's rows, each
+InfoNCE's terms of its share's rows over every row's denominator (`rows=`);
+the L2 norms and DirectAU's uniformity, which couple the batch's rows, are
+computed whole at weight 1 / data ranks. Every draw keeps its shape (a
+table's, or the whole batch's), so the generator advances as on one device.
 """
 
 from __future__ import annotations
@@ -35,11 +44,12 @@ from ..data.device import CFDeviceData
 from ..ops.losses import (
     _l2_normalize,
     batch_softmax_loss,
-    bpr_loss,
+    bpr_l2_share,
     info_nce_masked,
     l2_reg_loss,
     unique_mask,
 )
+from ..parallel.mesh import data_ranks, data_share
 from .base import Extras, ModelBundle, flax_init, register_model
 from .layers import Tables, gcn_prop
 from .lightgcn import mean_split, propagate
@@ -91,13 +101,24 @@ def _cos_reg(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean(2.0 - 2.0 * torch.sum(_unit(pred) * _unit(target), dim=-1))
 
 
-def _bundle(name: str, cfg: Config, cf: CFDeviceData, module: nn.Module, **kw) -> ModelBundle:
-    return ModelBundle(name=name, cfg=cfg, cf=cf, kg=None, uses_kg=False, module=module, **kw)
+def _predicted_loss(predictor: nn.Module, u: torch.Tensor, i: torch.Tensor, tu: torch.Tensor,
+                    ti: torch.Tensor, users: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """BUIR's and SelfCF's symmetric regression of the predicted rows onto
+    the (gradient-free) target rows, both directions; the predictor runs on
+    the batch's rows only."""
+    pu, pi = predictor(u[users]), predictor(i[pos])
+    return _cos_reg(pu, ti.detach()[pos]) + _cos_reg(pi, tu.detach()[users])
+
+
+def _bundle(name: str, cfg: Config, cf: CFDeviceData, module: nn.Module, mesh,
+            **kw) -> ModelBundle:
+    return ModelBundle(name=name, cfg=cfg, cf=cf, kg=None, uses_kg=False, module=module,
+                       data_split=data_ranks(mesh) > 1, **kw)
 
 
 # ---------------------------------------------------------------- DirectAU
 @register_model("DirectAU")
-def build_directau(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+def build_directau(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
     module = Tables(cf.n_users, cf.n_items, cfg.embedding_size).to(cf.edge_u.device)
     gamma = cfg.cl_rate if cfg.cl_rate > 0 else 1.0
 
@@ -109,16 +130,18 @@ def build_directau(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
 
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos = (t.long() for t in batch[:2])
+        share = data_share(mesh, users.shape[0])
         un, pn = _unit(module.user_emb[users]), _unit(module.item_emb[pos])
-        align = torch.mean(torch.sum(torch.square(un - pn), dim=1))
-        unif = (uniformity(un[:256]) + uniformity(pn[:256])) / 2.0
+        rows = share.rows
+        align = share.part * torch.mean(torch.sum(torch.square(un[rows] - pn[rows]), dim=1))
+        unif = share.whole * (uniformity(un[:256]) + uniformity(pn[:256])) / 2.0
         return align + gamma * unif, {"rec_loss": align.detach(), "cl_loss": unif.detach()}
 
     @torch.no_grad()
     def encode_eval(extras: Extras):
         return module.user_emb.detach().clone(), module.item_emb.detach().clone()
 
-    return _bundle("DirectAU", cfg, cf, module, init=flax_init(module),
+    return _bundle("DirectAU", cfg, cf, module, mesh, init=flax_init(module),
                    encode_eval=encode_eval, batch_loss=batch_loss)
 
 
@@ -135,17 +158,18 @@ SIMGCL_EPS = 0.1
 
 
 def _build_simgcl_like(name: str, single_pass: bool):
-    def builder(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+    def builder(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
         module = Tables(cf.n_users, cf.n_items, cfg.embedding_size).to(cf.edge_u.device)
         n_u = cf.n_users
 
         def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
             users, pos, neg = (t.long() for t in batch[:3])
+            share = data_share(mesh, users.shape[0])
+            rows = share.rows
             u, i = module()
             u_emb, i_emb = mean_split(cf, _lightgcn_forward(cf, u, i, cfg.n_layers))
-            ue, pe, ne = u_emb[users], i_emb[pos], i_emb[neg]
-            rec = bpr_loss(ue, pe, ne)
-            reg = l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+            rec, reg = bpr_l2_share(share, cfg.reg, cfg.batch_size, u_emb[users], i_emb[pos],
+                                    i_emb[neg])
             uu, um = unique_mask(users)
             iu, im = unique_mask(pos)
             if single_pass:
@@ -153,19 +177,19 @@ def _build_simgcl_like(name: str, single_pass: bool):
                 noisy = _lightgcn_forward(cf, u, i, cfg.n_layers, generator, SIMGCL_EPS)
                 fu, fi = mean_split(cf, noisy)
                 lu, li = noisy[1][:n_u], noisy[1][n_u:]
-                cl = info_nce_masked(fu[uu], lu[uu], um, cfg.temp)
-                cl = cl + info_nce_masked(fi[iu], li[iu], im, cfg.temp)
+                cl = info_nce_masked(fu[uu], lu[uu], um, cfg.temp, rows)
+                cl = cl + info_nce_masked(fi[iu], li[iu], im, cfg.temp, rows)
             else:
                 v1 = _lightgcn_forward(cf, u, i, cfg.n_layers, generator, SIMGCL_EPS)
                 v2 = _lightgcn_forward(cf, u, i, cfg.n_layers, generator, SIMGCL_EPS)
                 u1, i1 = mean_split(cf, v1, skip_first=True)
                 u2, i2 = mean_split(cf, v2, skip_first=True)
-                cl = info_nce_masked(u1[uu], u2[uu], um, cfg.temp)
-                cl = cl + info_nce_masked(i1[iu], i2[iu], im, cfg.temp)
+                cl = info_nce_masked(u1[uu], u2[uu], um, cfg.temp, rows)
+                cl = cl + info_nce_masked(i1[iu], i2[iu], im, cfg.temp, rows)
             cl = cfg.cl_rate * cl
             return rec + reg + cl, {"rec_loss": rec.detach(), "cl_loss": cl.detach()}
 
-        return _bundle(name, cfg, cf, module, init=flax_init(module),
+        return _bundle(name, cfg, cf, module, mesh, init=flax_init(module),
                        encode_eval=_lightgcn_encode(cf, module, cfg.n_layers),
                        batch_loss=batch_loss)
 
@@ -196,7 +220,7 @@ def kmeans(x: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
 
 
 @register_model("NCL")
-def build_ncl(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+def build_ncl(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
     device = cf.edge_u.device
     module = Tables(cf.n_users, cf.n_items, cfg.embedding_size).to(device)
     n_u = cf.n_users
@@ -211,34 +235,36 @@ def build_ncl(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
         return {"user_centroids": kmeans(module.user_emb.detach(), generator),
                 "item_centroids": kmeans(module.item_emb.detach(), generator)}
 
-    def proto(x, cent, nodes, valid):
+    def proto(x, cent, nodes, valid, rows):
         xn = x[nodes]
         d = torch.sum(torch.square(xn[:, None] - cent[None]), dim=-1)
-        return info_nce_masked(xn, cent[torch.argmin(d, dim=1)], valid, cfg.temp)
+        return info_nce_masked(xn, cent[torch.argmin(d, dim=1)], valid, cfg.temp, rows)
 
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos, neg = (t.long() for t in batch[:3])
+        share = data_share(mesh, users.shape[0])
+        rows = share.rows
         u, i = module()
         outs = _lightgcn_forward(cf, u, i, cfg.n_layers)
         u_emb, i_emb = mean_split(cf, outs)
-        ue, pe, ne = u_emb[users], i_emb[pos], i_emb[neg]
-        rec = bpr_loss(ue, pe, ne)
-        reg = l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+        rec, reg = bpr_l2_share(share, cfg.reg, cfg.batch_size, u_emb[users], i_emb[pos],
+                                i_emb[neg])
         uu, um = unique_mask(users)
         iu, im = unique_mask(pos)
         # structural: the even-hop layer (2) against the ego layer
         hop, ego = outs[min(2, len(outs) - 1)], outs[0]
-        ssl = info_nce_masked(hop[:n_u][uu], ego[:n_u][uu], um, cfg.temp)
-        ssl = cfg.cl_rate * (ssl + info_nce_masked(hop[n_u:][iu], ego[n_u:][iu], im, cfg.temp))
+        ssl = info_nce_masked(hop[:n_u][uu], ego[:n_u][uu], um, cfg.temp, rows)
+        ssl = cfg.cl_rate * (ssl + info_nce_masked(hop[n_u:][iu], ego[n_u:][iu], im, cfg.temp,
+                                                   rows))
         # prototype: each picked row against its nearest centroid
-        pl = proto(u, extras["user_centroids"], uu, um) + proto(i, extras["item_centroids"],
-                                                                iu, im)
+        pl = (proto(u, extras["user_centroids"], uu, um, rows)
+              + proto(i, extras["item_centroids"], iu, im, rows))
         pl = PROTO_REG * pl
         loss = rec + reg + ssl + pl
         return loss, {"rec_loss": rec.detach(), "cl_loss": ssl.detach(),
                       "proto_loss": pl.detach()}
 
-    return _bundle("NCL", cfg, cf, module, init=init,
+    return _bundle("NCL", cfg, cf, module, mesh, init=init,
                    encode_eval=_lightgcn_encode(cf, module, cfg.n_layers),
                    batch_loss=batch_loss, epoch_setup=epoch_setup)
 
@@ -248,10 +274,13 @@ N_CAND_NEGS = 8
 
 
 @register_model("MixGCF")
-def build_mixgcf(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+def build_mixgcf(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
     module = Tables(cf.n_users, cf.n_items, cfg.embedding_size).to(cf.edge_u.device)
 
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
+        """The hardest negatives are mixed for the whole batch, as its L2
+        norm reads them all (the draws are the whole batch's); BPR over the
+        data rank's share."""
         users, pos = (t.long() for t in batch[:2])
         u_emb, i_emb = mean_split(cf, _lightgcn_forward(cf, *module(), cfg.n_layers))
         ue, pe = u_emb[users], i_emb[pos]
@@ -263,11 +292,10 @@ def build_mixgcf(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
         mixed = alpha * i_emb[cands] + (1 - alpha) * pe[:, None, :]
         hardest = torch.argmax(torch.einsum("bd,bmd->bm", ue, mixed), dim=1)
         ne = torch.take_along_dim(mixed, hardest[:, None, None], dim=1)[:, 0]
-        rec = bpr_loss(ue, pe, ne)
-        reg = l2_reg_loss(cfg.reg, ue, pe, ne) / cfg.batch_size
+        rec, reg = bpr_l2_share(data_share(mesh, b), cfg.reg, cfg.batch_size, ue, pe, ne)
         return rec + reg, {"rec_loss": rec.detach(), "reg_loss": reg.detach()}
 
-    return _bundle("MixGCF", cfg, cf, module, init=flax_init(module),
+    return _bundle("MixGCF", cfg, cf, module, mesh, init=flax_init(module),
                    encode_eval=_lightgcn_encode(cf, module, cfg.n_layers), batch_loss=batch_loss)
 
 
@@ -295,22 +323,23 @@ class Towers(nn.Module):
 
 
 @register_model("SSL4Rec")
-def build_ssl4rec(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+def build_ssl4rec(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
     module = Towers(cf.n_users, cf.n_items, cfg.embedding_size).to(cf.edge_u.device)
 
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos = (t.long() for t in batch[:2])
+        share = data_share(mesh, users.shape[0])
         u_emb, i_emb = module()
-        rec = batch_softmax_loss(u_emb[users], i_emb[pos], cfg.temp)
+        rec = batch_softmax_loss(u_emb[users], i_emb[pos], cfg.temp, share.rows)
         # item-side contrast between two feature-dropped towers
         i1 = module.items(cfg.drop_rate, generator)
         i2 = module.items(cfg.drop_rate, generator)
         iu, im = unique_mask(pos)
-        cl = cfg.cl_rate * info_nce_masked(i1[iu], i2[iu], im, cfg.temp)
-        reg = l2_reg_loss(cfg.reg, u_emb[users], i_emb[pos]) / cfg.batch_size
+        cl = cfg.cl_rate * info_nce_masked(i1[iu], i2[iu], im, cfg.temp, share.rows)
+        reg = share.whole * l2_reg_loss(cfg.reg, u_emb[users], i_emb[pos]) / cfg.batch_size
         return rec + cl + reg, {"rec_loss": rec.detach(), "cl_loss": cl.detach()}
 
-    return _bundle("SSL4Rec", cfg, cf, module, init=flax_init(module),
+    return _bundle("SSL4Rec", cfg, cf, module, mesh, init=flax_init(module),
                    encode_eval=torch.no_grad()(lambda extras: module()), batch_loss=batch_loss)
 
 
@@ -330,7 +359,7 @@ class Predicted(nn.Module):
 
 
 @register_model("BUIR")
-def build_buir(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+def build_buir(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
     """BUIR-ID: the online tables and predictor regress the slowly moving
     EMA target tables (extras, `update_extras` each step before the loss),
     both directions; no negatives."""
@@ -350,11 +379,12 @@ def build_buir(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
 
     def batch_loss(extras: Extras, batch, edge_keys=(), generator=None):
         users, pos = (t.long() for t in batch[:2])
+        share = data_share(mesh, users.shape[0])
         u, i = module.user_emb, module.item_emb
-        pu, pi = module.predictor(u), module.predictor(i)
-        tu, ti = extras["target_u"].detach(), extras["target_i"].detach()
-        loss = _cos_reg(pu[users], ti[pos]) + _cos_reg(pi[pos], tu[users])
-        reg = l2_reg_loss(cfg.reg, u[users], i[pos]) / cfg.batch_size
+        loss = share.part * _predicted_loss(module.predictor, u, i, extras["target_u"],
+                                            extras["target_i"], users[share.rows],
+                                            pos[share.rows])
+        reg = share.whole * l2_reg_loss(cfg.reg, u[users], i[pos]) / cfg.batch_size
         return loss + reg, {"rec_loss": loss.detach()}
 
     @torch.no_grad()
@@ -364,13 +394,13 @@ def build_buir(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
         u, i = module.user_emb, module.item_emb
         return u + module.predictor(u), i + module.predictor(i)
 
-    return _bundle("BUIR", cfg, cf, module, init=init, encode_eval=encode_eval,
+    return _bundle("BUIR", cfg, cf, module, mesh, init=init, encode_eval=encode_eval,
                    batch_loss=batch_loss, update_extras=update_extras)
 
 
 # ---------------------------------------------------------------- SelfCF
 @register_model("SelfCF")
-def build_selfcf(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
+def build_selfcf(cfg: Config, cf: CFDeviceData, kg=None, mesh=None) -> ModelBundle:
     """SelfCF-ed: one LightGCN encoder and a predictor; the target is the
     same encoder's output on the edge-dropped adjacency, without gradient
     (no momentum network). The target pass runs under `no_grad`, so it
@@ -384,13 +414,14 @@ def build_selfcf(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
 
     def batch_loss(extras: Extras, batch, edge_keys, generator=None):
         users, pos = (t.long() for t in batch[:2])
+        share = data_share(mesh, users.shape[0])
         u, i = encode()
-        pu, pi = module.predictor(u), module.predictor(i)
         with torch.no_grad():
             adj = cf.adj.dropped(edge_keys[0], keep) if keep < 1.0 else cf.adj
             tu, ti = encode(adj)
-        loss = _cos_reg(pu[users], ti[pos]) + _cos_reg(pi[pos], tu[users])
-        reg = l2_reg_loss(cfg.reg, u[users], i[pos]) / cfg.batch_size
+        loss = share.part * _predicted_loss(module.predictor, u, i, tu, ti, users[share.rows],
+                                            pos[share.rows])
+        reg = share.whole * l2_reg_loss(cfg.reg, u[users], i[pos]) / cfg.batch_size
         return loss + reg, {"rec_loss": loss.detach()}
 
     @torch.no_grad()
@@ -398,5 +429,5 @@ def build_selfcf(cfg: Config, cf: CFDeviceData, kg=None) -> ModelBundle:
         u, i = encode()
         return u + module.predictor(u), i + module.predictor(i)
 
-    return _bundle("SelfCF", cfg, cf, module, init=flax_init(module),
+    return _bundle("SelfCF", cfg, cf, module, mesh, init=flax_init(module),
                    encode_eval=encode_eval, batch_loss=batch_loss, n_edge_keys=1)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.types import SparseCOO, with_new_vals
 
 _M32 = 0xFFFFFFFF
@@ -97,10 +98,10 @@ def drop_edges(generator: torch.Generator | None, adj: SparseCOO,
 
 
 def node_dropout_mask(generator: torch.Generator | None, n_nodes: int, drop_rate: float,
-                      device: torch.device | str = "cpu") -> torch.Tensor:
+                      device: torch.device | str | None = None) -> torch.Tensor:
     """Boolean keep-mask over nodes (GraphAugmentor.node_dropout,
-    data/augmentor.py:11-25)."""
-    return bernoulli_mask(generator, 1.0 - drop_rate, (n_nodes,), device)
+    data/augmentor.py:11-25), on `device` (default: the card)."""
+    return bernoulli_mask(generator, 1.0 - drop_rate, (n_nodes,), resolve_device(device))
 
 
 def drop_edges_by_nodes(generator: torch.Generator | None, adj: SparseCOO,

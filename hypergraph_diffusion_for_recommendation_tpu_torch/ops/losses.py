@@ -17,6 +17,17 @@ def bpr_loss(user_emb: torch.Tensor, pos_emb: torch.Tensor, neg_emb: torch.Tenso
     return -torch.mean(torch.log(1e-5 + torch.sigmoid(pos_score - neg_score)))
 
 
+def bpr_l2_share(share, reg: float, batch_size: int, user_emb: torch.Tensor,
+                 pos_emb: torch.Tensor, neg_emb: torch.Tensor):
+    """(BPR, L2 / batch_size) of a batch's rows, as a data rank's share of
+    them (`parallel.mesh.data_share`): BPR's mean over the share's rows at
+    the share's weight, the L2 norms (not squared: they couple the rows) of
+    the whole batch's rows at weight 1 / data ranks."""
+    r = share.rows
+    rec = share.part * bpr_loss(user_emb[r], pos_emb[r], neg_emb[r])
+    return rec, share.whole * l2_reg_loss(reg, user_emb, pos_emb, neg_emb) / batch_size
+
+
 def triplet_loss(user_emb: torch.Tensor, pos_emb: torch.Tensor,
                  neg_emb: torch.Tensor) -> torch.Tensor:
     """Hinge triplet, margin 1 (util/loss_torch.py:11-15)."""
@@ -105,34 +116,41 @@ def contrast_loss_pregathered(p1_raw: torch.Tensor, p2_raw: torch.Tensor, valid:
 
 
 def info_nce(view1: torch.Tensor, view2: torch.Tensor, temperature: float,
-             b_cos: bool = True) -> torch.Tensor:
+             b_cos: bool = True, rows: slice = slice(None)) -> torch.Tensor:
     """InfoNCE over paired rows (util/loss_torch.py:32-40): +1e-5 inside
-    the log, as the reference."""
+    the log, as the reference. `rows`: the rows whose terms are added (a
+    data rank's share, `parallel.mesh.data_share`), each over every row of
+    `view2`; the mean stays over every row, so the shares' losses add up to
+    the whole one."""
+    n = view1.shape[0]
+    view1 = view1[rows]
     if b_cos:
         view1, view2 = _l2_normalize(view1), _l2_normalize(view2)
-    pos_score = torch.exp(torch.sum(view1 * view2, dim=-1) / temperature)
+    pos_score = torch.exp(torch.sum(view1 * view2[rows], dim=-1) / temperature)
     ttl_score = torch.sum(torch.exp(view1 @ view2.T / temperature), dim=1)
-    return -torch.mean(torch.log(pos_score / ttl_score + 1e-5))
+    return -torch.sum(torch.log(pos_score / ttl_score + 1e-5)) / n
 
 
 def batch_softmax_loss(user_emb: torch.Tensor, item_emb: torch.Tensor,
-                       temperature: float) -> torch.Tensor:
-    """In-batch softmax over the batch's items (util/loss_torch.py:23-30)."""
-    return info_nce(user_emb, item_emb, temperature, b_cos=True)
+                       temperature: float, rows: slice = slice(None)) -> torch.Tensor:
+    """In-batch softmax over the batch's items (util/loss_torch.py:23-30);
+    `rows` as in `info_nce`."""
+    return info_nce(user_emb, item_emb, temperature, b_cos=True, rows=rows)
 
 
 def info_nce_masked(view1: torch.Tensor, view2: torch.Tensor, valid: torch.Tensor,
-                    temperature: float) -> torch.Tensor:
+                    temperature: float, rows: slice = slice(None)) -> torch.Tensor:
     """`info_nce` over a fixed-size buffer of picked rows with a validity
     mask (the static-shape form of torch.unique picks): masked rows leave
-    both the mean and the denominator's contrast set."""
-    v1, v2 = _l2_normalize(view1), _l2_normalize(view2)
-    pos_score = torch.exp(torch.sum(v1 * v2, dim=-1) / temperature)
+    both the mean and the denominator's contrast set. `rows` as in
+    `info_nce`: the mean stays over every valid row."""
+    v1, v2 = _l2_normalize(view1[rows]), _l2_normalize(view2)
+    pos_score = torch.exp(torch.sum(v1 * v2[rows], dim=-1) / temperature)
     logits = torch.exp(v1 @ v2.T / temperature) * valid[None, :].to(view1.dtype)
     ttl = torch.sum(logits, dim=1)
     per = -torch.log(pos_score / ttl + 1e-5)
     vf = valid.to(per.dtype)
-    return torch.sum(per * vf) / torch.clamp(torch.sum(vf), min=1.0)
+    return torch.sum(per * vf[rows]) / torch.clamp(torch.sum(vf), min=1.0)
 
 
 def unique_mask(ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -41,11 +41,22 @@ A case is a dict with "kind" and numpy inputs:
   * "trainer": model, cfg (make_config overrides), data (synthetic_dataset
     arguments, with hub_users/hub_degree for a power-law head), shard, social,
     epochs, optional state (the module's initial state dict, host tensors),
-    batches (per epoch, the injected batches), save_dir / save_at (rank 0
-    saves the checkpoint after that epoch), restore_dir — the epoch
-    losses, `evaluate()`, the single-device evaluation of the same
-    embeddings, the tables, the sharded names and the parameters' and
-    Adam state's local shapes, the sharded adjacencies' local edge slots;
+    batches (per epoch, the injected batches: an alternating model's CF
+    batches, then its KG batches), save_dir / save_at (rank 0 saves the
+    checkpoint after that epoch), restore_dir, first_step (record every
+    step's loss and this rank's share of it, per phase), steps (run only
+    the first `steps` steps of each phase of epoch 0, not whole epochs) —
+    the epoch losses, the recorded steps, `data_split`, `evaluate()`, the
+    single-device evaluation of the same embeddings, the tables, the
+    sharded names and the parameters' and Adam state's local shapes, the
+    sharded adjacencies' local edge slots;
+  * "step_flops": model, cfg, data, social — the FLOPs of one step of each
+    phase (`utils.profiling.cost_analysis` of `Trainer.train_step`) on this
+    rank, built for the mesh, and built for one device, on the same batch;
+  * "gather_shares": x [n, d] (the whole), temp — `gather_shares` of this
+    data rank's rows of x against `all_gather_cat`'s, and the gradient of
+    this rank's share of an InfoNCE of the gathered rows (`info_nce(rows=)`)
+    with respect to its rows;
   * "sharded_lightgcn": norm_adj (scipy), n_users, n_items, dim, n_layers,
     lrate, optional table, users/pos/neg [steps, B] — the losses and the
     final propagated tables of `ShardedLightGCN`;
@@ -399,34 +410,24 @@ def _trainer(mesh, device, case, reps):
     if case.get("restore_dir"):
         start = trainer.restore(CheckpointManager(case["restore_dir"], background=False))
     batches = case.get("batches")
-    first, share = [], []
-    if case.get("first_step"):  # the first step's loss and this rank's share of it
-        step, batch_loss = trainer.train_step, bundle.batch_loss
-
-        def recorded(*a, **kw):
-            loss, aux = step(*a, **kw)
-            if not first:
-                first.append(float(loss))
-            return loss, aux
-
-        def shared(*a, **kw):
-            loss, aux = batch_loss(*a, **kw)
-            if not share:
-                share.append(float(loss.detach()))
-            return loss, aux
-
-        trainer.train_step, bundle.batch_loss = recorded, shared
+    steps = None
+    if case.get("first_step"):
+        steps = record_steps(trainer, timed=bool(case.get("steps")))
     losses, times, launches = [], [], {}
     for ep in range(start, case["epochs"]):
         if batches is not None:
-            epoch = tuple(_t(b, device) for b in batches[ep])
-            trainer.sample_epoch = lambda epoch=epoch: epoch
+            inject_batches(trainer, tuple(_t(b, device) for b in batches[ep]))
         before = _launches()
         _sync(device)
         t0 = time.perf_counter()
-        losses.append(trainer.run_epoch(ep)[0])
+        if case.get("steps"):
+            losses.append(run_steps(trainer, case["steps"]))
+            n_steps = case["steps"] * len(trainer._phases)
+        else:
+            losses.append(trainer.run_epoch(ep)[0])
+            n_steps = trainer.n_batches
         _sync(device)
-        times.append((time.perf_counter() - t0) * 1e3 / trainer.n_batches)
+        times.append((time.perf_counter() - t0) * 1e3 / n_steps)
         launches = _launched(before)
         if case.get("save_at") == ep:
             state = trainer.checkpoint_state(ep)
@@ -441,8 +442,11 @@ def _trainer(mesh, device, case, reps):
                                              tuple(cfg.top_ns), block=cfg.eval_user_batch),
                              tuple(cfg.top_ns))
     adam = trainer.opt.state
-    return dict(losses=losses, first_loss=first[0] if first else None,
-                first_share=share[0] if share else None, metrics=metrics,
+    steps = None if steps is None else steps_on_host(steps)
+    first = {k: (v[0] if v else None) for k, v in (steps or {}).items()}
+    return dict(losses=losses, first_loss=first.get("cf"), first_share=first.get("cf_share"),
+                kg_first_loss=first.get("kg"), kg_first_share=first.get("kg_share"),
+                steps=steps, data_split=bundle.data_split, metrics=metrics,
                 single=single, user=_np(u), item=_np(i),
                 sharded=list(trainer.sharded), start=start, step_ms=times,
                 epoch_launches=launches,
@@ -451,6 +455,109 @@ def _trainer(mesh, device, case, reps):
                              for n, p in zip(trainer._param_names, trainer._params) if p in adam},
                 slots=_local_slots(bundle), n_batches=trainer.n_batches,
                 extras={k: v for k, v in trainer.extras.items() if not torch.is_tensor(v)})
+
+
+def record_steps(trainer, timed: bool = False) -> dict:
+    """Record, from now on, every step's loss ("cf", "kg": the trainer's, summed
+    over the data group) and this rank's share of it ("cf_share", "kg_share": what
+    the bundle's loss returned), per phase, as copies on the device (no sync:
+    `steps_on_host` after the steps); with `timed`, also each step's wall
+    milliseconds ("cf_ms", "kg_ms"; a sync a step)."""
+    bundle = trainer.bundle
+    rec = {f"{p}{k}": [] for p in ("cf", "kg") for k in ("", "_share", "_ms")}
+    step = trainer.train_step
+
+    def recorded(batch, edge_keys, phase="cf"):
+        t0 = time.perf_counter()
+        loss, aux = step(batch, edge_keys, phase)
+        rec[phase].append(loss.detach().clone())
+        if timed:
+            _sync(loss.device)
+            rec[f"{phase}_ms"].append((time.perf_counter() - t0) * 1e3)
+        return loss, aux
+
+    def shared(fn, phase):
+        def wrapped(*a, **kw):
+            loss, aux = fn(*a, **kw)
+            rec[f"{phase}_share"].append(loss.detach().clone())
+            return loss, aux
+
+        return wrapped
+
+    trainer.train_step = recorded
+    bundle.batch_loss = shared(bundle.batch_loss, "cf")
+    if bundle.kg_batch_loss is not None:
+        bundle.kg_batch_loss = shared(bundle.kg_batch_loss, "kg")
+    return rec
+
+
+def steps_on_host(rec: dict) -> dict:
+    """`record_steps`' record as host floats."""
+    return {k: [float(x) for x in v] for k, v in rec.items()}
+
+
+def inject_batches(trainer, epoch: tuple) -> None:
+    """The trainer's next epoch runs on `epoch` (an alternating model's CF
+    batches, then its KG batches) instead of sampling."""
+    if trainer.bundle.alternating:
+        trainer.sample_epoch = lambda: epoch[:3]
+        trainer.sample_kg_epoch = lambda: epoch[3:]
+    else:
+        trainer.sample_epoch = lambda: epoch
+
+
+def run_steps(trainer, n: int) -> float:
+    """The first `n` steps of each phase of an epoch, as `run_epoch` begins it
+    (no `end_epoch`); returns the sum of the phases' mean losses."""
+    trainer.begin_epoch()
+    total = trainer.run_phase(tuple(t[:n] for t in trainer.sample_epoch()))[0]
+    if trainer.bundle.alternating:
+        total += trainer.run_phase(tuple(t[:n] for t in trainer.sample_kg_epoch()), "kg")[0]
+    return total
+
+
+def _step_flops(mesh, device, case, reps):
+    from ..train import Trainer
+    from ..utils.profiling import cost_analysis
+
+    out = {}
+    for key, m in (("split", mesh), ("whole", None)):
+        _, bundle = build_on_mesh(case["model"], case["cfg"], case["data"], m, device,
+                                  shard=False, social=case.get("social", False))
+        trainer = Trainer(bundle, mesh=m, graphs=False)
+        # the first batch of each phase, the same on both sides: the trainers'
+        # generators are seeded alike
+        batches = {"cf": trainer.sample_epoch()}
+        if bundle.alternating:
+            batches["kg"] = trainer.sample_kg_epoch()
+        keys = trainer.edge_keys()
+        for phase, epoch in batches.items():
+            cost = cost_analysis(trainer.train_step, tuple(t[0] for t in epoch), keys, phase)
+            out.setdefault(phase, {})[key] = cost["flops"]
+        if m is not None:
+            out["data_split"] = bundle.data_split
+    return out
+
+
+def _gather_shares(mesh, device, case, reps):
+    from ..ops.losses import info_nce, info_nce_masked
+    from .mesh import DATA_AXIS, all_gather_cat, data_ranks, data_share, gather_shares
+
+    x = _t(case["x"], device, torch.float32)
+    n = x.shape[0]
+    share = data_share(mesh, n)
+    mine = x[share.rows].clone().requires_grad_()
+    whole = gather_shares(mine, mesh, n)
+    v1, v2 = whole.chunk(2, dim=1)
+    loss = info_nce(v1, v2, case["temp"], rows=share.rows)
+    loss.backward()
+    with torch.no_grad():
+        masked = info_nce_masked(v1, v2, _t(case["valid"], device), case["temp"], share.rows)
+    out = dict(gathered=_np(whole), loss=float(loss.detach()), masked=float(masked),
+               grad=_np(mine.grad), rows=(share.rows.start, share.rows.stop))
+    if n % data_ranks(mesh) == 0:  # equal shares: the plain all-gather's rows
+        out["all_gather_cat"] = _np(all_gather_cat(mine.detach(), mesh.get_group(DATA_AXIS)))
+    return out
 
 
 def _sharded_lightgcn(mesh, device, case, reps):
@@ -492,7 +599,8 @@ _CASES = {"lookup": _lookup, "a2a": _a2a, "scatter_add": _scatter_add, "user_top
           "distributed_topk": _distributed_topk, "param_shardings": _param_shardings,
           "sharded_mf": _sharded_mf, "shard_sparse": _shard_sparse,
           "sharded_pair": _sharded_pair, "trainer": _trainer,
-          "sharded_lightgcn": _sharded_lightgcn, "retriever": _retriever, "dryrun": _dryrun}
+          "sharded_lightgcn": _sharded_lightgcn, "retriever": _retriever, "dryrun": _dryrun,
+          "step_flops": _step_flops, "gather_shares": _gather_shares}
 
 # the sizes of `dryrun_multichip`'s phases: the JAX package's
 # (__graft_entry__.py:97-238) and a CPU-test cut
@@ -601,15 +709,17 @@ def dryrun_phases(device, sizes: dict) -> dict:
     return out
 
 
-def dryrun_multichip(n: int, device: str = "cuda", sizes: dict | None = None) -> list:
+def dryrun_multichip(n: int, device: str | None = None, sizes: dict | None = None) -> list:
     """The port's counterpart of the JAX `__graft_entry__.dryrun_multichip`:
     `n` ranks (`utils.platform.run_ranks`) run `dryrun_phases` at `sizes`
     (default `DRYRUN_FULL`); returns each rank's results, or raises with the
     first failed rank's error."""
+    from ..core.device import resolve_device
     from ..utils.platform import run_ranks
 
     case = dict(DRYRUN_FULL if sizes is None else sizes, kind="dryrun")
-    return run_ranks(n, run_cases, (0, 0), device, {"dryrun": case})
+    device = resolve_device(device).type
+    return run_ranks(n, run_cases, (0, 0), device, {"dryrun": case}, device=device)
 
 
 def run_cases(mesh_shape: tuple[int, int], device: str, cases: dict, reps: int = 0) -> dict:

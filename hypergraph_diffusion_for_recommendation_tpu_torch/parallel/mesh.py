@@ -33,11 +33,15 @@ autograd collectives follow from that:
     rank computes its own part; its backward sums the parts' gradients
     over the group.
 
-The data axis splits the per-example terms of a batch (`data_share`):
+The data axis splits the per-example work of a batch (`data_share`):
 each data rank's loss is its share of the global batch's (the terms that
-couple the batch's rows, computed whole, at weight 1 / data ranks), the
-shares add up to it, and the trainer sums the gradients over the data
-group.
+couple the batch's rows, computed whole, at weight 1 / data ranks, or as
+the share's rows' terms over every row's denominator), the shares add up
+to it, and the trainer sums the gradients over the data group. There each
+rank computes a different loss, so the data axis's gather (`gather_shares`:
+every data rank's share of a split activation, concatenated) has the
+transpose of the all-gather as its backward: the group's cotangents
+summed, this rank's block kept (a reduce-scatter).
 """
 
 from __future__ import annotations
@@ -78,19 +82,22 @@ def pick_backend(device_type: str, world_size: int, n_cards: int) -> str:
     return "gloo"
 
 
-def make_mesh(data: int = 0, model: int = 0, device="cpu", backend: str | None = None):
+def make_mesh(data: int = 0, model: int = 0, device=None, backend: str | None = None):
     """A (data, model) `DeviceMesh` over every rank of the default process
     group (which `utils.platform.run_ranks` initialises), factored as
     `mesh_shape` factors the world size; `device` is the device this rank
-    computes on. The group's backend must be `backend` (default: the one
-    `pick_backend` picks for this layout). Unlike the JAX mesh, which may
+    computes on (default: its card, `core.device.resolve_device`). The
+    group's backend must be `backend` (default: the one `pick_backend`
+    picks for this layout). Unlike the JAX mesh, which may
     leave devices out, every rank must belong to the mesh."""
     from torch.distributed.device_mesh import init_device_mesh
 
+    from ..core.device import resolve_device
+
+    device = resolve_device(device)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised default process group "
                            "(utils.platform.run_ranks starts one per rank)")
-    device = torch.device(device)
     world = dist.get_world_size()
     data, model = mesh_shape(world, data, model)
     if data * model != world:
@@ -288,19 +295,67 @@ def data_share(mesh, n: int) -> DataShare:
     """This data rank's share of a global batch of `n` rows (the same on
     every rank): its rows are `torch.tensor_split`'s split of the batch over
     the data axis. A per-example mean over the rows is weighted by `part`; a
-    term that couples the rows (a norm over the whole batch) is computed
-    whole and weighted by `whole`. The data ranks' losses then add up to the
-    global batch's. Without a mesh, or with one data rank, every row at
-    weight 1."""
+    term that couples the rows is computed whole and weighted by `whole` (a
+    norm over the whole batch), or as its share's rows' terms over every
+    row's denominator (a contrast: `ops.losses`' `rows=`; `gather_shares`
+    brings a split activation's other rows). The data ranks' losses then add
+    up to the global batch's. Without a mesh, or with one data rank, every
+    row at weight 1."""
     k = data_ranks(mesh)
     if k == 1:
         return DataShare(slice(None), 1.0, 1.0)
     if n < k:
         raise ValueError(f"a batch of {n} rows does not split over {k} data ranks")
     r = mesh.get_local_rank(DATA_AXIS)
-    lo = r * (n // k) + min(r, n % k)
-    size = n // k + (r < n % k)
-    return DataShare(slice(lo, lo + size), size / n, 1.0 / k)
+    sizes = share_sizes(mesh, n)
+    lo = sum(sizes[:r])
+    return DataShare(slice(lo, lo + sizes[r]), sizes[r] / n, 1.0 / k)
+
+
+def share_sizes(mesh, n: int) -> list[int]:
+    """Every data rank's share size of a batch of `n` rows, in data-rank
+    order (`data_share`'s split)."""
+    k = data_ranks(mesh)
+    return [n // k + (r < n % k) for r in range(k)]
+
+
+def _concat_shares(x: torch.Tensor, group, sizes: list[int]) -> torch.Tensor:
+    """Every group rank's `x` ([sizes[rank], ...]), concatenated: padded to
+    the largest share for the all-gather, then trimmed."""
+    width = max(sizes)
+    pad = x.new_zeros((width - x.shape[0],) + tuple(x.shape[1:]))
+    parts = all_gather_cat(torch.cat([x, pad]), group)
+    return torch.cat([parts[s * width:s * width + n] for s, n in enumerate(sizes)])
+
+
+class _GatherShares(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, sizes):
+        ctx.group, ctx.sizes = group, sizes
+        return _concat_shares(x, group, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        lo = sum(ctx.sizes[:r])
+        total = all_reduce_(g.contiguous().clone(), ctx.group)
+        return total[lo:lo + ctx.sizes[r]], None, None
+
+
+def gather_shares(x: torch.Tensor, mesh, n: int) -> torch.Tensor:
+    """Every data rank's share (`data_share`'s rows of a batch of `n`) of
+    a split activation, `x` being this rank's, concatenated in data-rank
+    order: the whole batch's [n, ...] rows (uneven shares are padded to the
+    largest for the all-gather). Backward: the data group's cotangents
+    summed, this rank's rows kept (each data rank computes its own loss).
+    Without a data axis, `x`."""
+    if data_ranks(mesh) == 1:
+        return x
+    group = mesh.get_group(DATA_AXIS)
+    sizes = share_sizes(mesh, n)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherShares.apply(x, group, sizes)
+    return _concat_shares(x, group, sizes)
 
 
 _PARAMETRIZED = re.compile(r"parametrizations\.([^.]+)\.original")

@@ -79,10 +79,12 @@ class ShardedLightGCN:
 
     def __init__(self, mesh, norm_adj, n_users: int, n_items: int, dim: int,
                  n_layers: int = 2, lrate: float = 0.05, seed: int = 0, table=None,
-                 device="cpu"):
+                 device=None):
+        from ..core.device import resolve_device
         from ..ops.kernels.segment_spmm import pack_blocked
         from ..weights import _xavier_uniform
 
+        self.device = resolve_device(device)
         self.mesh = mesh
         self.shards = axis_size(mesh, MODEL_AXIS)
         self.n_data = axis_size(mesh, DATA_AXIS)
@@ -90,7 +92,6 @@ class ShardedLightGCN:
         self.n_items = n_items
         self.n_layers = n_layers
         self.lrate = lrate
-        self.device = torch.device(device)
         n_nodes = n_users + n_items
         self.n_pad = -(-n_nodes // self.shards) * self.shards
         self.rows_per_shard = self.n_pad // self.shards

@@ -38,12 +38,14 @@ class ShardedMF:
     package's, through `weights.sharded_mf_from_jax`); without them the
     tables are drawn from flax's Xavier-uniform with a generator seeded
     with `seed` (the same draw on every rank). `device`: where this rank
-    keeps its blocks and computes."""
+    keeps its blocks and computes (default: its card)."""
 
     def __init__(self, mesh, n_users: int, n_items: int, dim: int,
-                 lrate: float = 0.05, seed: int = 0, tables=None, device="cpu"):
+                 lrate: float = 0.05, seed: int = 0, tables=None, device=None):
+        from ..core.device import resolve_device
         from ..weights import _xavier_uniform
 
+        device = resolve_device(device)
         self.mesh = mesh
         self.shards = axis_size(mesh, MODEL_AXIS)
         self.n_data = axis_size(mesh, DATA_AXIS)

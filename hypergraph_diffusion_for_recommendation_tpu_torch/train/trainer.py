@@ -95,16 +95,18 @@ and keys (every rank's generators are seeded alike):
     table all-gathers it over the model group;
   * adjacencies the bundle's data builds sharded (`shard_needs`) hold about
     nnz / model edges per rank (`parallel.sharded_adj`);
-  * the data axis splits the batch's per-example terms of the models built
-    to split them (`ModelBundle.data_split`: MF, LightGCN, the KHGRec
-    family, over `parallel.mesh.data_share`'s rows): each data rank's loss
-    is its share of the global batch's, and after the backward the
+  * the data axis splits every model's batch (`ModelBundle.data_split`, which
+    every builder sets for a mesh whose data axis is above 1, over
+    `parallel.mesh.data_share`'s rows), as the JAX trainer's `_dp_constrain`
+    shards it: each data rank computes the per-example work of its share,
+    its loss is its share of the global batch's, and after the backward the
     gradients and the loss terms are summed over the data group, in one
-    all_reduce. The terms that couple the batch's rows read the whole
-    (replicated) activations: a contrast adds the terms of its share's rows
-    over every row's denominator, the next attention is scored from the
-    whole KG batch. The data ranks of the other models compute the global
-    batch's loss and run the same step, with no collective;
+    all_reduce. The propagation stays whole on every rank; the terms that
+    couple the batch's rows read the whole activations: a contrast adds the
+    terms of its share's rows over every row's denominator (SASRec and
+    CL4SRec, whose encoder runs on the share's sequences, gather the other
+    ranks' rows through `parallel.mesh.gather_shares`), the next attention is
+    scored from the whole KG batch;
   * the gradient clip's norm adds the row blocks' squares over the model
     group;
   * evaluation with a model axis above 1 scores each rank's item block and

@@ -12,8 +12,8 @@ calls `target(*args)` on every rank, and returns each rank's result in
 rank order, or raises the first failed rank's error.
 
 `target` is a module-level function that each rank imports by name: it
-lives in this package, so that no rank imports JAX. On the CPU the group
-runs gloo; with `device="cuda"` each rank computes on card
+lives in this package, so that no rank imports JAX. With `device="cpu"` the
+group runs gloo; on the cards (the default) each rank computes on card
 `rank % n_cards`, and the backend is the one `parallel.mesh.pick_backend`
 picks for that layout (gloo when ranks share a card, NCCL when each has
 its own). Each rank runs one intra-op thread.
@@ -53,20 +53,22 @@ def _rank_main(rank: int, n: int, tmp: str, backend: str, device_type: str, resu
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_ranks(n: int, target, *args, device: str = "cpu", timeout: float = 600.0) -> list:
+def run_ranks(n: int, target, *args, device: str | None = None,
+              timeout: float = 600.0) -> list:
     """Run `target(*args)` on `n` spawned ranks of one process group;
-    returns their results in rank order. Raises RuntimeError with a
+    returns their results in rank order. `device`: where the ranks compute
+    (default: the card; `core.device.resolve_device`). Raises RuntimeError with a
     failed rank's traceback, or on a rank that neither answers nor exits
     within `timeout` seconds (every rank is then killed)."""
     import multiprocessing as mp
 
     import torch
 
+    from ..core.device import resolve_device
     from ..parallel.mesh import pick_backend
 
+    device = resolve_device(device).type
     n_cards = torch.cuda.device_count() if device == "cuda" else 0
-    if device == "cuda" and n_cards == 0:
-        raise RuntimeError("run_ranks(device='cuda') needs a CUDA card")
     backend = pick_backend(device, n, n_cards)
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="ranks_")

@@ -188,7 +188,7 @@ if __name__ == '__main__':
         'khgrec': dict(kind='trainer', model='KHGRec', epochs=1, data=dict(
             n_users=40, n_items=60, mean_degree=8.0, seed=1, with_kg=True), cfg=dict(
             hyper_dim=8, relation_dim=4, batch_size=64, batch_size_kg=64, eval_user_batch=64,
-            item_ranking=(10, 20), shard_min_rows=8))})
+            item_ranking=(10, 20), shard_min_rows=8))}, device='cpu')
     assert [r['leaked'] for r in out] == [[], []], out
     assert (out[0]['lookup']['rows'] == table[[1, 7, 3]]).all()
     assert out[0]['sparse']['y'].sum() == 20.0

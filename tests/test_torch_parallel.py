@@ -130,7 +130,7 @@ def cases(jax_mf):
 @pytest.fixture(scope="module")
 def ranks(cases):
     """Every case on 4 spawned gloo ranks, once for the module."""
-    return run_ranks(N_RANKS, run_cases, MESH, "cpu", cases)
+    return run_ranks(N_RANKS, run_cases, MESH, "cpu", cases, device="cpu")
 
 
 def _model_blocks(ranks, case, key="grad"):

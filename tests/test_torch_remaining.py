@@ -321,7 +321,7 @@ def test_dropout_matches_jax(fn, monkeypatch):
                         lambda gen, p, shape, device: torch.as_tensor(draw("torch", p, shape)))
     key = jax.random.PRNGKey(0)
     if fn == "node_dropout_mask":
-        got = tdrop.node_dropout_mask(None, 77, 0.3).numpy()
+        got = tdrop.node_dropout_mask(None, 77, 0.3, "cpu").numpy()
         want = np.asarray(jdrop.node_dropout_mask(key, 77, 0.3))
     else:
         rate = 0.7 if fn == "drop_edges" else 0.2
@@ -338,7 +338,7 @@ def test_dropout_matches_jax(fn, monkeypatch):
     gen = torch.Generator().manual_seed(1)
     if fn == "node_dropout_mask":
         n, p = 200_000, 0.7
-        kept = int(tdrop.node_dropout_mask(gen, n, 0.3).sum())
+        kept = int(tdrop.node_dropout_mask(gen, n, 0.3, "cpu").sum())
         sd = (n * p * (1 - p)) ** 0.5 / n
     elif fn == "drop_edges":
         n, p = big.nnz, 0.7

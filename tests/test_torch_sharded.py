@@ -27,13 +27,30 @@ virtual CPU devices with `make_mesh(1, 4)` or `make_mesh(2, 2)`. Tolerances:
     of `_MODEL_SHARD_NEEDS` (loss 1e-3, metrics 1e-2), and one epoch of
     every other registered model with its tables row-sharded (loss 1e-4,
     metrics 1e-3): the mesh path refuses no model;
-  * `Trainer(mesh=)` for LightGCN and KHGRec (edge dropout off) on (2, 2)
-    against the JAX mesh trainer on injected batches from JAX's initial
-    parameters: epoch losses within 1e-4 relative over two epochs,
-    `evaluate()` within 1e-6 of the single-device evaluation of the same
-    embeddings, the row blocks' shapes (parameter and Adam state); the two
-    data ranks' shares of the first step's loss differ and add up to the
-    step's loss within 1e-6;
+  * `Trainer(mesh=)` for LightGCN, KHGRec (edge dropout off), SASRec and
+    KGAT (dropout off, both phases) on (2, 2) against the JAX mesh trainer
+    (whose `_dp_constrain` shards every step's batch over the data axis) on
+    injected batches from JAX's initial parameters (SASRec's are the JAX
+    trainer's own draws, recomputed from its keys): epoch losses within 1e-4
+    relative over two epochs, `evaluate()` within 1e-6 of the
+    single-device evaluation of the same embeddings, the row blocks'
+    shapes (parameter and Adam state); the two data ranks' shares of the
+    first step's loss differ and add up to the step's loss within 1e-6;
+  * the data axis's split for every registered name (one build of each;
+    the KHGRec_variation names are KHGRec's builder, each built on a data
+    axis's shape alone): `data_split` on a (2, 2) mesh, the two data ranks'
+    shares of the first step's loss (and of KGAT's first KG step) differ
+    and add up to the step's loss within 1e-6;
+  * `gather_shares` (even and uneven shares): its rows equal the whole
+    batch's (and `all_gather_cat`'s for even shares); the data ranks'
+    gradients of their InfoNCE shares (`info_nce(rows=)`) of the gathered
+    rows make the gradient of the unsplit InfoNCE within 1e-6, and the
+    shares of `info_nce` and `info_nce_masked` add up to the whole loss
+    within 1e-6;
+  * a data rank's step FLOPs at data 2 against one device's
+    (`utils.profiling.cost_analysis` of `Trainer.train_step` on the same
+    batch): at most 0.6 for SASRec, CL4SRec and KGAT's KG phase; printed for
+    every other model;
   * `ShardedLightGCN`: two steps from JAX's initial table within 1e-6 of
     the JAX engine's tables and losses, the JAX engine run at lrate / S (its
     gradient is S times the dense one: ROADMAP.md, Queue 3); and the
@@ -75,6 +92,7 @@ from hypergraph_diffusion_for_recommendation_tpu.models import (
 )
 from hypergraph_diffusion_for_recommendation_tpu.ops import sampling as j_sampling
 from hypergraph_diffusion_for_recommendation_tpu.ops.dropout import hash_keep_mask as j_keep
+from hypergraph_diffusion_for_recommendation_tpu.train import trainer as j_trainer_mod
 from hypergraph_diffusion_for_recommendation_tpu.parallel.sharded_adj import (
     shard_sparse as j_shard_sparse,
 )
@@ -111,6 +129,17 @@ HD3 = dict(lrate=0.01, hyper_dim=16, reg=0.1, drop_rate=0.2, batch_size=256, mod
 MF = dict(lrate=0.05, hyper_dim=16, embedding_size=16, reg=0.01, batch_size=256,
           eval_user_batch=64, shard_min_rows=4)
 GCN = dict(dim=16, n_layers=2, lrate=0.1)
+SEQ = dict(lrate=0.01, embedding_size=16, n_layers=2, drop_rate=0.0, batch_size=64,
+           eval_user_batch=64, shard_min_rows=16, early_stopping_steps=100)
+KGAT_KW = dict(lrate=0.01, embedding_size=16, relation_dim=8, conv_dim_list=(16, 8),
+               mess_dropout=(0.0, 0.0), batch_size=256, batch_size_kg=256, eval_user_batch=64,
+               shard_min_rows=16, sampler="exact", early_stopping_steps=100)
+# the models held against the JAX mesh trainer: (configuration, data)
+JAX_MESH = {"LightGCN": (LGCN, DATA), "SASRec": (SEQ, DATA), "KGAT": (KGAT_KW, KG_DATA),
+            "KHGRec": (dict(KHG, drop_rate=0.0, sampler="exact"), KG_DATA)}
+# a data rank's step FLOPs at data 2 are at most this share of one device's for these
+# (model, phase): their steps are per-example work
+FLOPS_BOUND = {("SASRec", "cf"): 0.6, ("CL4SRec", "cf"): 0.6, ("KGAT", "kg"): 0.6}
 # the rest of models.base._MODEL_SHARD_NEEDS: one epoch with their adjacencies sharded (at
 # ZOO_SPEC's size)
 OTHER_SHARDED = ("HCCF", "HGCN", "SHT", "HGNN_HD", "HGNN_HD4", "LocalEncoder", "WaveletHD",
@@ -124,15 +153,18 @@ ZOO_KW = dict(hyper_dim=8, embedding_size=8, relation_dim=4, batch_size=64, batc
 SOCIAL = ("MHCN", "SEPT")
 
 
-def _zoo():
+def _names():
     from hypergraph_diffusion_for_recommendation_tpu_torch.models import MODEL_REGISTRY
 
-    covered = {"LightGCN", "HGNN_HD3", "KHGRec", "MF", *OTHER_SHARDED}
-    return sorted(n for n in MODEL_REGISTRY
-                  if n not in covered and not n.startswith("KHGRec_variation"))
+    return sorted(n for n in MODEL_REGISTRY if not n.startswith("KHGRec_variation"))
 
 
-ZOO = _zoo()
+NAMES = _names()  # every registered builder
+ZOO = [n for n in NAMES if n not in {"LightGCN", "HGNN_HD3", "KHGRec", "MF", *OTHER_SHARDED}]
+# the trainer case of each name whose first step is recorded
+SPLIT_CASE = dict({n: f"zoo_{n}" for n in ZOO}, MF="mf_whole",
+                  **{n: f"sharded_{n}" for n in ("LightGCN", "HGNN_HD3", "KHGRec",
+                                                 *OTHER_SHARDED)})
 
 
 def _f32(a):
@@ -189,19 +221,34 @@ def _jax_build(name, cfg_kw, spec, jmesh, shard=True):
     return cfg, j_build_model(cfg, cf, kg, mesh=jmesh), inter, kg_df
 
 
-def _batches(inter, kg_df, cfg, n_batches, n_epochs, seed):
-    """Injected epochs: (users, pos, neg[, h, r, pos_t, neg_t]), each [n_batches, B]."""
+def _batches(inter, kg_df, cfg, n_batches, n_epochs, seed, n_kg_batches=None):
+    """Injected epochs: (users, pos, neg[, h, r, pos_t, neg_t]), each [n_batches, B] (the KG
+    batches [n_kg_batches, B_kg]: an alternating epoch draws its own number)."""
     rng = np.random.default_rng(seed)
     b, out = cfg.batch_size, []
+    n_kg = n_batches if n_kg_batches is None else n_kg_batches
     for _ in range(n_epochs):
         e = rng.integers(0, inter.train_u.shape[0], (n_batches, b))
         ep = [inter.train_u[e], inter.train_i[e], rng.integers(0, inter.n_items, (n_batches, b))]
-        if kg_df is not None:
+        if kg_df is not None and cfg.use_knowledge:
             kg = j_build_knowledge(kg_df, inter)
-            t = rng.integers(0, kg.h.shape[0], (n_batches, cfg.batch_size_kg))
+            t = rng.integers(0, kg.h.shape[0], (n_kg, cfg.batch_size_kg))
             ep += [kg.h[t], kg.r[t], kg.t[t],
-                   rng.integers(0, kg.n_entities, (n_batches, cfg.batch_size_kg))]
+                   rng.integers(0, kg.n_entities, (n_kg, cfg.batch_size_kg))]
         out.append(tuple(np.asarray(a, np.int32) for a in ep))
+    return out
+
+
+def _sequence_batches(trainer, n_epochs):
+    """The sequence batches the JAX trainer draws in its next `n_epochs` epochs, from its
+    keys: `run_epoch`'s split, then the epoch's (its first key samples the batches)."""
+    rng, cfg, out = trainer.rng, trainer.cfg, []
+    for _ in range(n_epochs):
+        rng, k = jax.random.split(rng)
+        k_cf = jax.random.split(k, 4)[0]
+        ep = j_trainer_mod._sequence_epoch_batches(k_cf, trainer.bundle.seq, cfg.batch_size,
+                                                   cfg.neg_resample_rounds)
+        out.append(tuple(np.asarray(a) for a in ep))
     return out
 
 
@@ -242,18 +289,21 @@ def jmeshes():
 
 @pytest.fixture(scope="module")
 def jax_trainers(jmeshes):
-    """JAX mesh trainers (sharded builds, exact sampler) of LightGCN and KHGRec
-    (dropout off), their initial parameters and the injected batches."""
+    """JAX mesh trainers (sharded builds; the exact sampler, but SASRec's) of JAX_MESH's
+    models (dropout off), their initial parameters and the injected batches."""
     out = {}
-    for name, kw, spec in (("LightGCN", LGCN, DATA),
-                           ("KHGRec", dict(KHG, drop_rate=0.0, sampler="exact"), KG_DATA)):
+    for name, (kw, spec) in JAX_MESH.items():
         cfg, bundle, inter, kg_df = _jax_build(name, kw, spec, jmeshes[(2, 2)])
         tr = JTrainer(bundle, mesh=jmeshes[(2, 2)])
         params = jax.tree_util.tree_map(np.asarray, tr.params["params"])
-        state = (params_from_jax(params, "cpu") if name == "LightGCN"
-                 else khgrec_params_from_jax(params, None, "cpu")[0])
-        out[name] = dict(trainer=tr, cfg_kw=kw, spec=spec, state=state,
-                         batches=_batches(inter, kg_df, cfg, tr.n_batches, 2, seed=5))
+        state = (khgrec_params_from_jax(params, None, "cpu")[0] if name == "KHGRec"
+                 else params_from_jax(params, "cpu"))
+        if bundle.batch_kind == "sequence":
+            batches = _sequence_batches(tr, 2)
+        else:
+            n_kg = bundle.kg.n_kg_train // cfg.batch_size_kg + 1 if bundle.alternating else None
+            batches = _batches(inter, kg_df, cfg, tr.n_batches, 2, seed=5, n_kg_batches=n_kg)
+        out[name] = dict(trainer=tr, cfg_kw=kw, spec=spec, state=state, batches=batches)
     return out
 
 
@@ -314,8 +364,16 @@ def _cases(jax_trainers, jax_gcn, single_ckpt, tmp):
     for name in ZOO:
         cases[f"zoo_{name}"] = dict(kind="trainer", model=name, cfg=ZOO_KW, data=ZOO_SPEC,
                                     epochs=1, social=name in SOCIAL, mesh=(2, 2))
+    for name in NAMES:
+        cases[f"flops_{name}"] = dict(kind="step_flops", model=name, cfg=ZOO_KW, data=ZOO_SPEC,
+                                      social=name in SOCIAL, mesh=(2, 2))
+    for n in (64, 63):  # even and uneven shares over the two data ranks
+        cases[f"gather_{n}"] = dict(kind="gather_shares", x=_f32(rng.standard_normal((n, 16))),
+                                    valid=rng.random(n) < 0.8, temp=0.2, mesh=(2, 2))
     ckpt = str(tmp / "mesh_ckpt")
     cases["mf_whole"] = dict(kind="trainer", model="MF", cfg=MF, data=DATA, epochs=4, mesh=(2, 2))
+    for name in NAMES:  # each name's first step, its data ranks' shares
+        cases[SPLIT_CASE[name]]["first_step"] = True
     cases["mf_save"] = dict(kind="trainer", model="MF", cfg=MF, data=DATA, epochs=2, save_at=1,
                             save_dir=ckpt, mesh=(2, 2))
     cases["mf_resume"] = dict(kind="trainer", model="MF", cfg=MF, data=DATA, epochs=4,
@@ -354,7 +412,7 @@ def pending(jax_trainers, jax_gcn, single_ckpt, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharded")
     cases = _cases(jax_trainers, jax_gcn, single_ckpt, tmp)
     pool = concurrent.futures.ThreadPoolExecutor(1)
-    future = pool.submit(run_ranks, N_RANKS, run_cases, (1, 4), "cpu", cases)
+    future = pool.submit(run_ranks, N_RANKS, run_cases, (1, 4), "cpu", cases, device="cpu")
     yield cases, future
     pool.shutdown(wait=True)
 
@@ -536,28 +594,105 @@ def test_every_model_trains_on_the_mesh_as_on_one_device(ranks, name):
     assert bool(ranks[0][f"zoo_{name}"]["sharded"]) == (name != "HKGRippleNet")
 
 
-@pytest.mark.parametrize("name", ["LightGCN", "KHGRec"])
+def _assert_split(ranks, case, phases=("",)):
+    """The two data ranks' shares of the first step's loss (of each phase) differ and add
+    up to the step's loss, which both report, at each model coordinate."""
+    for phase in phases:
+        for m in range(2):
+            a, b = (_rank_of(ranks, (2, 2), (d, m))[case] for d in range(2))
+            assert a["data_split"] and b["data_split"]
+            sa, sb = a[f"{phase}first_share"], b[f"{phase}first_share"]
+            loss = a[f"{phase}first_loss"]
+            assert sa != sb, (phase, m, sa)
+            np.testing.assert_allclose(sa + sb, loss, rtol=1e-6, err_msg=phase)
+            np.testing.assert_allclose(loss, b[f"{phase}first_loss"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", list(JAX_MESH))
 def test_mesh_trainer_matches_the_jax_mesh_trainer(ranks, jax_epochs, jax_trainers, name):
     want = jax_epochs[name]
     state = jax_trainers[name]["state"]
-    table = "user_entity_emb" if name == "KHGRec" else "user_emb"
     for r in ranks:
         got = r[f"jax_{name}"]
         np.testing.assert_allclose(got["losses"], want, rtol=1e-4)
         for n in got["metrics"]:
             for k, v in got["metrics"][n].items():
                 assert abs(v - got["single"][n][k]) < 1e-6, (n, k)
-        rows, d = state[table].shape
-        assert table in got["sharded"]
-        assert got["shapes"][table] == (rows // 2, d) == got["adam_shapes"][table]
+        table = {"KHGRec": "user_entity_emb", "LightGCN": "user_emb"}.get(name)
+        assert table is None or table in got["sharded"]
+        for t in got["sharded"]:
+            rows, d = state[t].shape
+            assert got["shapes"][t] == (rows // 2, d) == got["adam_shapes"][t]
     # the data axis splits the step: the two data ranks' losses differ, and add up to
     # the step's loss, which every rank reports
+    _assert_split(ranks, f"jax_{name}", ("", "kg_") if name == "KGAT" else ("",))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_every_model_splits_its_batch_over_the_data_axis(ranks, name):
+    _assert_split(ranks, SPLIT_CASE[name], ("", "kg_") if name == "KGAT" else ("",))
+
+
+class _DataAxis:
+    """A (2, 1) mesh's shape and names, as the builders read them (no process group)."""
+
+    shape, mesh_dim_names = (2, 1), ("data", "model")
+
+
+@pytest.mark.parametrize("name", [f"KHGRec_variation{i}" for i in range(1, 10)])
+def test_the_khgrec_aliases_split_as_khgrec(name):
+    # the aliases are KHGRec's builder (the ranks run KHGRec itself): each is built to split
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core.config import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.models import build_model
+
+    _, bundle = build_on_mesh("KHGRec", ZOO_KW, ZOO_SPEC, None, "cpu")
+    split = build_model(make_config(name, **ZOO_KW), bundle.cf, bundle.kg, mesh=_DataAxis())
+    assert not bundle.data_split and split.data_split and split.name == "KHGRec"
+
+
+@pytest.mark.parametrize("n", [64, 63])
+def test_gather_shares_and_split_info_nce_match_the_whole(ranks, cases, n):
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.losses import (
+        info_nce,
+        info_nce_masked,
+    )
+
+    c = cases[f"gather_{n}"]
+    x = torch.tensor(c["x"], requires_grad=True)
+    v1, v2 = x.chunk(2, dim=1)
+    whole = info_nce(v1, v2, c["temp"])
+    whole.backward()
+    masked = float(info_nce_masked(v1, v2, torch.tensor(c["valid"]), c["temp"]).detach())
     for m in range(2):
-        a, b = (_rank_of(ranks, (2, 2), (d, m))[f"jax_{name}"] for d in range(2))
-        assert a["first_share"] != b["first_share"]
-        np.testing.assert_allclose(a["first_share"] + b["first_share"], a["first_loss"],
-                                   rtol=1e-6)
-        np.testing.assert_allclose(a["first_loss"], b["first_loss"], rtol=1e-6)
+        rs = [_rank_of(ranks, (2, 2), (d, m))[f"gather_{n}"] for d in range(2)]
+        assert [r["rows"] for r in rs] == [(0, (n + 1) // 2), ((n + 1) // 2, n)]
+        for r in rs:
+            np.testing.assert_array_equal(r["gathered"], c["x"])
+            if n % 2 == 0:
+                np.testing.assert_array_equal(r["all_gather_cat"], c["x"])
+        # each data rank's gradient holds the other rank's terms through the backward's sum
+        grad = np.concatenate([r["grad"] for r in rs])
+        np.testing.assert_allclose(grad, x.grad.numpy(), rtol=0,
+                                   atol=1e-6 * float(np.abs(x.grad.numpy()).max()))
+        np.testing.assert_allclose(sum(r["loss"] for r in rs), float(whole.detach()), rtol=1e-6)
+        np.testing.assert_allclose(sum(r["masked"] for r in rs), masked, rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_a_data_rank_does_less_work(ranks, name):
+    for r in ranks:
+        got = r[f"flops_{name}"]
+        assert got["data_split"]
+        for phase in ("cf", "kg"):
+            if phase not in got:
+                continue
+            split, whole = got[phase]["split"], got[phase]["whole"]
+            ratio = split / whole if whole else float("nan")
+            print(f"{name} {phase}: a data rank's step {split:.0f} FLOPs at data 2, one "
+                  f"device's {whole:.0f}: {ratio:.3f}")
+            assert split <= whole
+            bound = FLOPS_BOUND.get((name, phase))
+            assert bound is None or ratio <= bound, (phase, ratio)
 
 
 def test_sharded_lightgcn_matches_jax(ranks, jax_gcn):
