@@ -214,8 +214,10 @@ Each phase's seconds are printed as it ends (`[time]`), and all of them
 with the total before the result lines.
 
 The wrappers' launch counts (`LAUNCHES`) count Python calls: in graph mode
-a branch's eager first step and its capture, never a replay. The launches
-inside replays are counted in the profiler's trace.
+a branch's eager first step and its capture, never a replay. A replayed
+step's launches are those its graph's capture counted
+(`Trainer.replayed_launches`); the profiler's trace, which can lose an
+event, gives times.
 
 The line before the last is the card's name and power limit; before it,
 one JSON line with a row per kernel (kernels 1-4: times per training step
@@ -1351,9 +1353,10 @@ def graph_check(tag: str, bundle, extras, batches, per_full: int, int8: bool = F
     from that state agree bit for bit, else within GRAPH_RTOL of each
     tensor's scale (the log names the tensors that moved and the step's
     kernels with float atomics). Then, per branch of the loss, the SpMM
-    launches inside one replayed step, counted by kernel name in the
-    profiler's trace, and inside one eager step, counted by its wrappers
-    (its trace, which may lose an event, holds no more) (`per_full` a full
+    launches inside one replayed step, as its graph's capture counted them
+    (`Trainer.replayed_launches`; the profiler's count by kernel name, which
+    may lose an event, is kept beside it), and inside one eager step,
+    counted by its wrappers (its trace holds no more) (`per_full` a full
     step, 0 a cached one; int8 also `per_full` quantisations), and both steps' wall,
     device time and idle share. With `bitwise` the replay must equal the
     eager step bit for bit in any case. `cycle` = (the extras' host step
@@ -1426,13 +1429,18 @@ def graph_check(tag: str, bundle, extras, batches, per_full: int, int8: bool = F
                 tr.extras[count_key] = count
             tr.train_step(*batch(0), phase)
 
-        # the eager step's launches as its wrappers count them: exact, where
+        # the eager step's launches as its wrappers count them, and the
+        # replayed step's as its graph's capture counted them: exact, where
         # the trace may lose one (`counted_profile`)
         spmm_keys = [k for k in S.LAUNCHES if k.startswith("segment_spmm")]
         before = sum(S.LAUNCHES[k] for k in spmm_keys)
         step(te)
         torch.cuda.synchronize()
         wrapped = sum(S.LAUNCHES[k] for k in spmm_keys) - before
+        before = tg.replayed_launches()
+        step(tg)
+        torch.cuda.synchronize()
+        replayed = {k: n - before.get(k, 0) for k, n in tg.replayed_launches().items()}
         row, splits = {}, {}
         for mode, tr in (("replay", tg), ("eager", te)):
             wall = cuda_ms(lambda: step(tr), iters=10, warmup=2)
@@ -1451,23 +1459,29 @@ def graph_check(tag: str, bundle, extras, batches, per_full: int, int8: bool = F
                 log(f"[graph] {tag} {br}: kernels of the step with float atomics (the order "
                     f"of their sums changes from run to run): {[k[:60] for k in atomics]}")
         row["eager"]["wrapper_spmm_launches"] = wrapped
+        # the replay's launches from its capture; the trace's count stays beside them
+        row["replay"]["trace_spmm_launches"] = row["replay"]["spmm_launches"]
+        row["replay"]["spmm_launches"] = sum(replayed.get(k, 0) for k in spmm_keys)
+        row["replay"]["quantise_launches"] = replayed.get("quantize_int8", 0)
         got = (row["replay"]["spmm_launches"], row["eager"]["spmm_launches"])
         log(f"[graph] {tag} {br} step: replay wall {row['replay']['wall_ms']:.4f} ms, device "
             f"{row['replay']['device_ms']:.4f}, idle {row['replay']['idle_share']:.4f} | eager "
             f"wall {row['eager']['wall_ms']:.4f}, device {row['eager']['device_ms']:.4f}, idle "
-            f"{row['eager']['idle_share']:.4f} | SpMM launches a step: replay {got[0]:g}, eager "
-            f"{got[1]:g} in the trace, {wrapped} by the wrappers (expected {want})")
+            f"{row['eager']['idle_share']:.4f} | SpMM launches a step: replay {got[0]:g} by its "
+            f"capture ({row['replay']['trace_spmm_launches']:g} in the trace), eager {got[1]:g} "
+            f"in the trace, {wrapped} by the wrappers (expected {want})")
         # where the two device times part: the kernels whose time differs most
         gap = {k: splits["eager"].get(k, 0.0) - splits["replay"].get(k, 0.0)
                for k in set(splits["eager"]) | set(splits["replay"])}
         top = sorted(gap.items(), key=lambda kv: -abs(kv[1]))[:4]
         log(f"[graph] {tag} {br} step: device ms eager minus replay, largest: "
             + "; ".join(f"{k[:50]} {d:+.4f}" for k, d in top))
-        # a replay's launches are seen in the trace alone; an eager step's
-        # are held by its wrappers, and its trace may hold no more
+        # a replay's launches are its capture's; an eager step's are held by
+        # its wrappers, and its trace may hold no more
         if got[0] != want or wrapped != want or got[1] > want:
-            raise AssertionError(f"{tag} {br}: SpMM launches a step {got} in the trace, "
-                                 f"{wrapped} eager by the wrappers, expected {want}")
+            raise AssertionError(f"{tag} {br}: SpMM launches a step {got} (replay by its "
+                                 f"capture, eager in the trace), {wrapped} eager by the "
+                                 f"wrappers, expected {want}")
         if int8 and (row["replay"]["quantise_launches"], row["eager"]["quantise_launches"]) != (
                 want, want):
             raise AssertionError(f"{tag} {br}: quantisations a step {row}, expected {want}")
@@ -1711,9 +1725,8 @@ def phase_family(shape: str, data, card: str) -> list[dict]:
     """HGNN, HD2 and HGNNAblation (mode wohyper) at full width (phase 6's
     configuration): one encode and one training step through the kernels
     against the plain versions (`encode_vs_plain`, `step_vs_plain`), their
-    launches counted, then `FAMILY_REPLAYS` replayed steps with their
-    launches counted in the profiler's trace, and the replayed step's
-    times."""
+    launches counted, then `FAMILY_REPLAYS` replayed steps, a replayed
+    step's launches as its capture counted them, and its times."""
     from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
     from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender, Trainer
 
@@ -1743,14 +1756,20 @@ def phase_family(shape: str, data, card: str) -> list[dict]:
             raise AssertionError(f"{tag}: {n_run} steps launched {python} from Python; loss "
                                  f"{loss}")
         replay = lambda: trainer.train_step(batch, step_keys[0])  # noqa: E731
+        spmm = lambda: sum(n for k, n in trainer.replayed_launches().items()  # noqa: E731
+                           if k.startswith("segment_spmm"))
+        before = spmm()
+        replay()
+        replayed = spmm() - before
+        if replayed != 2 * per_enc:
+            raise AssertionError(f"{tag}: a replayed step's capture holds {replayed} SpMM "
+                                 f"launches, expected {2 * per_enc}")
         wall = cuda_ms(replay, iters=5, warmup=1)
         dev, split, counts = counted_profile(tag, replay, 2 * per_enc, iters=3)
-        if spmm_launches(counts) != 2 * per_enc:
-            raise AssertionError(f"{tag}: a replayed step holds {spmm_launches(counts)} SpMM "
-                                 f"launches, expected {2 * per_enc}")
         top = sorted(split.items(), key=lambda kv: -kv[1])[:5]
         summary = dict(model=name, mode=mode, shape=shape, card=card,
-                       launches_encode=per_enc, replayed_step_launches=spmm_launches(counts),
+                       launches_encode=per_enc, replayed_step_launches=replayed,
+                       trace_step_launches=spmm_launches(counts),
                        encode_max_abs_err=enc_err, **step, replayed_steps=FAMILY_REPLAYS,
                        loss=loss, step_wall_ms=round(wall, 4), step_device_ms=round(dev, 4),
                        step_idle_share=round(max(0.0, 1.0 - dev / wall), 4),

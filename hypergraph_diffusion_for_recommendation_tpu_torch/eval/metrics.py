@@ -21,6 +21,7 @@ import torch
 
 from ..data.device import EvalData
 from ..ops.topk import exact_scores, masked_topk
+from ..utils.spans import EVAL_METRICS, EVAL_SCORE, EVAL_TOPK, span
 
 
 def ranking_metrics(
@@ -38,8 +39,10 @@ def ranking_metrics(
 
     def top_ids(s: int, e: int) -> torch.Tensor:
         users = eval_data.test_users[s:e].long()
-        scores = exact_scores(user_emb[users], item_emb)
-        return masked_topk(scores, rated_pad[users], max_n)[1]
+        with span(EVAL_SCORE):
+            scores = exact_scores(user_emb[users], item_emb)
+        with span(EVAL_TOPK):
+            return masked_topk(scores, rated_pad[users], max_n)[1]
 
     return _metrics(top_ids, eval_data, top_ns, block, user_emb.device, "ranking_metrics")
 
@@ -76,20 +79,22 @@ def _metrics(top_ids, eval_data: EvalData, top_ns, block: int, dev, name: str) -
 
     total = torch.zeros(len(top_ns), 3, dtype=torch.float32, device=dev)
     for s in range(0, n_pad, block):
-        vf = eval_data.user_valid[s : s + block].float()
-        test_pos = eval_data.test_pos_pad[s : s + block]
-        cnt = eval_data.test_counts[s : s + block].long()
         ids = top_ids(s, s + block)[:, :max_n]
-        hit_f = (ids[:, :, None] == test_pos[:, None, :]).any(dim=-1).float()
-        rows = []
-        for n in top_ns:
-            hits_n = hit_f[:, :n].sum(dim=1)
-            dcg_n = (hit_f[:, :n] * pos_disc[:n]).sum(dim=1)
-            idcg_n = disc[torch.clamp(cnt, max=n)]
-            ndcg_n = torch.where(idcg_n > 0, dcg_n / torch.clamp(idcg_n, min=1e-12), 0.0)
-            rec_n = hits_n / torch.clamp(cnt.float(), min=1.0)
-            rows.append(torch.stack([(hits_n * vf).sum(), (rec_n * vf).sum(), (ndcg_n * vf).sum()]))
-        total += torch.stack(rows)
+        with span(EVAL_METRICS):
+            vf = eval_data.user_valid[s : s + block].float()
+            test_pos = eval_data.test_pos_pad[s : s + block]
+            cnt = eval_data.test_counts[s : s + block].long()
+            hit_f = (ids[:, :, None] == test_pos[:, None, :]).any(dim=-1).float()
+            rows = []
+            for n in top_ns:
+                hits_n = hit_f[:, :n].sum(dim=1)
+                dcg_n = (hit_f[:, :n] * pos_disc[:n]).sum(dim=1)
+                idcg_n = disc[torch.clamp(cnt, max=n)]
+                ndcg_n = torch.where(idcg_n > 0, dcg_n / torch.clamp(idcg_n, min=1e-12), 0.0)
+                rec_n = hits_n / torch.clamp(cnt.float(), min=1.0)
+                rows.append(torch.stack([(hits_n * vf).sum(), (rec_n * vf).sum(),
+                                         (ndcg_n * vf).sum()]))
+            total += torch.stack(rows)
 
     n_users = float(eval_data.n_test_users)
     n_inter = float(eval_data.total_test_interactions)

@@ -12,11 +12,23 @@ capture makes the capture raise. Nothing falls back to eager execution.
 A trainer's graphs share one memory pool. What a graph leaves for later
 is copied into tensors allocated outside the pool, so that the pool holds
 only each replay's temporaries, and the graphs may replay in any order.
+
+The kernel wrappers' `LAUNCHES` count Python calls, which a replay makes
+none of; a captured graph carries, as `graph.launches`, the wrappers'
+launches made during its capture, which is what each of its replays
+launches.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..ops.kernels import gather_fusion, segment_spmm
+from ..utils.spans import CAPTURE_ENCODE, span
+
+
+def _launches() -> dict:
+    return {**segment_spmm.LAUNCHES, **gather_fusion.LAUNCHES}
 
 
 def capture(fn, pool=None, generators=()):
@@ -25,12 +37,16 @@ def capture(fn, pool=None, generators=()):
     the work; `graph.replay()` does, writing the same output tensors each
     time. `generators` are the CUDA generators `fn` draws from besides the
     default one: each replay then draws fresh numbers from their current
-    state, as an eager call would."""
+    state, as an eager call would. `graph.launches`: {kernel wrapper:
+    launches} made during the capture (those above 0), which every replay
+    launches again."""
     graph = torch.cuda.CUDAGraph()
     for gen in generators:
         graph.register_generator_state(gen)
+    before = _launches()
     with torch.cuda.graph(graph, pool=pool):
         out = fn()
+    graph.launches = {k: n - before[k] for k, n in _launches().items() if n != before[k]}
     return graph, out
 
 
@@ -54,6 +70,7 @@ class EncodeGraph:
                 for out, t in zip(self.tables, self.bundle.encode_eval(self.extras)):
                     out.copy_(t)
 
-            self.graph, _ = capture(encode, self.pool)
+            with span(CAPTURE_ENCODE):
+                self.graph, _ = capture(encode, self.pool)
         self.graph.replay()
         return self.tables

@@ -80,9 +80,18 @@ into the tensors the step graphs read (parameters, Adam's state, extras
 buffers); the plateau schedules are not saved (neither are they in the JAX
 package). `Trainer(..., debug_nans=True)` runs every step eagerly under
 `torch.autograd.detect_anomaly` and raises at the first non-finite loss.
-`profile_epoch` runs an epoch under torch.profiler, each step inside a
-`record_function` range named `STEP_ANNOTATION:<phase>`, and writes a
-Chrome trace that `utils/trace_analysis.py` reads.
+`profile_epoch` runs an epoch under torch.profiler and writes a Chrome
+trace that `utils/trace_analysis.py` reads. Under any profiler the trainer
+records its spans (`utils/spans.py`), on the trace's clock: the epoch
+(`trainer.epoch`), its sampling (`trainer.sample:<phase>`), each step
+(`train_step:<phase>`, `STEP_ANNOTATION`), the wait for the phase's loss
+(`trainer.loss_to_host:<phase>`), each graph's capture
+(`trainer.capture:<phase>:<branch>`, `trainer.capture:encode`), the
+encode (`eval.encode`), and in `evaluate` each block's `eval.score`,
+`eval.topk` and `eval.metrics`, then `eval.to_host`. Without a profiler a
+span is a check and nothing more. `replayed_launches` counts the kernel
+wrappers' launches of the replayed graphs, which `LAUNCHES` does not see,
+from each graph's captured launches and its replays.
 
 Meshes (`Trainer(..., mesh=)`, a `parallel.make_mesh` mesh over the ranks
 that `utils.platform.run_ranks` starts; the JAX trainer's GSPMD mesh,
@@ -156,6 +165,17 @@ from ..parallel.mesh import (
     shard_tables,
     unshard_tables,
 )
+from ..utils.spans import (
+    CAPTURE,
+    EPOCH,
+    EVAL_ENCODE,
+    EVAL_TO_HOST,
+    EVAL_TOPK,
+    LOSS_TO_HOST,
+    SAMPLE,
+    STEP_ANNOTATION,
+    span,
+)
 from .graphs import EncodeGraph, capture
 from .optim import PlateauState, make_optimizer, set_lr
 
@@ -164,9 +184,6 @@ _FROZEN_EPOCHS = 10
 # captured: a real step, which fills Adam's state and the layouts' caches
 # (the dedup layout's parts are cut on the host at first use)
 GRAPH_WARMUP_STEPS = 1
-# the record_function range around each training step, ":<phase>" appended: the program
-# that utils/trace_analysis.py reads from a trace of `profile_epoch`
-STEP_ANNOTATION = "train_step"
 
 
 @dataclass
@@ -317,6 +334,7 @@ class Trainer:
         self._pool = torch.cuda.graph_pool_handle() if graphs else None
         # code path (a KG phase's prefixed "kg:") -> (graph, host-value steps)
         self._step_graphs = {}
+        self.replays = {}  # graph key (a step graph's; "encode") -> replays
         self._eager_steps = {}  # code path -> eager steps taken
         self._encode_graph = None
         self._frozen = False  # a graph reads the extras buffers: they stay where they are
@@ -488,11 +506,13 @@ class Trainer:
                 ph.stats.copy_(stats)
                 return host
 
-            graph, host = capture(step, self._pool, (self.drop_gen,))
+            with span(f"{CAPTURE}:{phase}:{branch}"):
+                graph, host = capture(step, self._pool, (self.drop_gen,))
             # a host value's change in one step (cached propagation's age: +1)
             self._step_graphs[key] = (graph, {k: v - before[k] for k, v in host.items()})
         graph, host_steps = self._step_graphs[key]
         graph.replay()
+        self.replays[key] = self.replays.get(key, 0) + 1
         for k, d in host_steps.items():
             self.extras[k] += d
         return ph.stats
@@ -559,29 +579,36 @@ class Trainer:
         ph = self._phases[phase]
         if ph.sums is not None:
             ph.sums.zero_()
+        step = f"{STEP_ANNOTATION}:{phase}"
         for s in range(n):
-            with torch.profiler.record_function(f"{STEP_ANNOTATION}:{phase}"):
+            with span(step):
                 self.train_step(tuple(t[s] for t in batches), keys[s], phase)
-        return (ph.sums / n).cpu().tolist()
+        with span(f"{LOSS_TO_HOST}:{phase}"):
+            return (ph.sums / n).cpu().tolist()
 
     def run_epoch(self, epoch: int) -> tuple[float, dict]:
-        self.begin_epoch()
-        means = self.run_phase(self.sample_epoch())
-        if self.bundle.alternating:
-            kg_means = self.run_phase(self.sample_kg_epoch(), "kg")
-            aux = {"cf_loss": means[0], "kg_loss": kg_means[0]}
-            loss = means[0] + kg_means[0]
-        else:
-            loss = means[0]
-            aux = dict(zip(self._phases["cf"].aux_names, means[1:]))
-        self.end_epoch()
-        # NaN guard: the reference checks every batch (KGAT.py:96-97);
-        # here a non-finite epoch mean fails the epoch
-        if not np.isfinite(loss):
-            raise FloatingPointError(
-                f"non-finite train loss ({loss}) at epoch {epoch + 1} for {self.cfg.model}")
-        aux["train_loss"] = loss
-        return loss, aux
+        with span(EPOCH):
+            self.begin_epoch()
+            with span(f"{SAMPLE}:cf"):
+                batches = self.sample_epoch()
+            means = self.run_phase(batches)
+            if self.bundle.alternating:
+                with span(f"{SAMPLE}:kg"):
+                    kg_batches = self.sample_kg_epoch()
+                kg_means = self.run_phase(kg_batches, "kg")
+                aux = {"cf_loss": means[0], "kg_loss": kg_means[0]}
+                loss = means[0] + kg_means[0]
+            else:
+                loss = means[0]
+                aux = dict(zip(self._phases["cf"].aux_names, means[1:]))
+            self.end_epoch()
+            # NaN guard: the reference checks every batch (KGAT.py:96-97);
+            # here a non-finite epoch mean fails the epoch
+            if not np.isfinite(loss):
+                raise FloatingPointError(
+                    f"non-finite train loss ({loss}) at epoch {epoch + 1} for {self.cfg.model}")
+            aux["train_loss"] = loss
+            return loss, aux
 
     def profile_epoch(self, trace_dir: str, epoch: int = 0) -> tuple[float, dict]:
         """`run_epoch` under torch.profiler (CPU activity, and CUDA on a card),
@@ -610,16 +637,32 @@ class Trainer:
         next step or restore); in graph mode the encode graph's outputs,
         which the next encode writes again."""
         if self._encoded is None or self._encoded[0] != self._version:
-            if self.graphs:
-                if self._encode_graph is None:
-                    self._frozen = True
-                    self._encode_graph = EncodeGraph(self.bundle, self.extras, self._pool)
-                tables = self._encode_graph()
-            else:
-                with self._tables_gathered():
-                    tables = self.bundle.encode_eval(self.extras)
+            with span(EVAL_ENCODE):
+                if self.graphs:
+                    if self._encode_graph is None:
+                        self._frozen = True
+                        self._encode_graph = EncodeGraph(self.bundle, self.extras, self._pool)
+                    tables = self._encode_graph()
+                    self.replays["encode"] = self.replays.get("encode", 0) + 1
+                else:
+                    with self._tables_gathered():
+                        tables = self.bundle.encode_eval(self.extras)
             self._encoded = (self._version, tables)
         return self._encoded[1]
+
+    def replayed_launches(self) -> dict:
+        """{kernel wrapper: launches} of every replay of this trainer's step
+        and encode graphs so far: each graph's launches in its capture times
+        its replays (the wrappers' `LAUNCHES` count Python calls, which a
+        replay makes none of)."""
+        graphs = {k: g for k, (g, _) in self._step_graphs.items()}
+        if self._encode_graph is not None:
+            graphs["encode"] = self._encode_graph.graph
+        out = {}
+        for key, n in self.replays.items():
+            for name, per in graphs[key].launches.items():
+                out[name] = out.get(name, 0) + n * per
+        return out
 
     def evaluate(self) -> dict:
         cfg, cf = self.cfg, self.bundle.cf
@@ -635,13 +678,15 @@ class Trainer:
             ids = []
             for s in range(0, ed.test_users.shape[0], block):
                 users = ed.test_users[s:s + block].long()
-                ids.append(sharded_user_topk(self.mesh, u[users], local, cf.rated_pad[users],
-                                             max(top_ns), i.shape[0])[1])
+                with span(EVAL_TOPK):
+                    ids.append(sharded_user_topk(self.mesh, u[users], local, cf.rated_pad[users],
+                                                 max(top_ns), i.shape[0])[1])
             m = metrics_from_topk(torch.cat(ids), ed, top_ns, block=block)
         else:
             m = ranking_metrics(u, i, cf.rated_pad, cf.eval_data, top_ns,
                                 block=cfg.eval_user_batch)
-        return metrics_to_host(m, top_ns)
+        with span(EVAL_TO_HOST):
+            return metrics_to_host(m, top_ns)
 
     def snapshot(self, optimizer: bool = False):
         """Copies of the parameters and the extras; with `optimizer`, also

@@ -42,6 +42,8 @@ import json
 import os
 from dataclasses import dataclass, field
 
+from .spans import EPOCH
+
 # device events (Chrome-trace categories) and the host calls that launch them
 _DEVICE_CATEGORIES = {"kernel": "kernel", "gpu_memcpy": "memcpy", "gpu_memset": "memset"}
 _LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
@@ -163,10 +165,13 @@ def device_program_stats(trace_dir: str) -> dict[str, ProgramStats]:
 
 def main_program(stats: dict[str, ProgramStats]) -> ProgramStats:
     """The dominant program in the capture = the one with the largest
-    total device span (the training step under `profile_epoch`)."""
-    if not stats:
+    total device span (the training step under `profile_epoch`). The
+    trainer's epoch range (`utils.spans.EPOCH`) holds every step of the
+    epoch, so it is no program."""
+    programs = [p for name, p in stats.items() if name != EPOCH]
+    if not programs:
         raise ValueError("no annotated programs in trace")
-    return max(stats.values(), key=lambda p: p.module_dur_s)
+    return max(programs, key=lambda p: p.module_dur_s)
 
 
 def trace_roofline(trace_dir: str, top_k: int = 8, extra_bytes_per_exec: float = 0.0,

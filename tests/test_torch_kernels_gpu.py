@@ -589,3 +589,50 @@ def test_hub_safe_sum_matches_and_repeats_on_the_card(cuda):
         (g,) = torch.autograd.grad((sparse.gather_rows_hubs(x, ids) * values).sum(), x)
         grads.append(g)
     assert torch.equal(grads[0], grads[1]) and err(grads[0]) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["LightGCN", "KHGRec"])
+def test_replayed_launches_come_from_the_capture(cuda, model):
+    # a replay makes no Python call, so `LAUNCHES` stays still; each step
+    # graph carries the wrappers' launches of its capture, which equal an
+    # eager step's, and the trainer counts its replays: the replayed steps'
+    # launches without the profiler
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data import synthetic_dataset
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender, Trainer
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train.trainer import (
+        GRAPH_WARMUP_STEPS,
+    )
+
+    kw = dict(hyper_dim=32, relation_dim=16, n_layers=2, batch_size_kg=512,
+              compute_dtype="bfloat16") if model == "KHGRec" else dict(embedding_size=32)
+    rec = Recommender(make_config(model, batch_size=256, eval_user_batch=128, **kw), cuda)
+    rec.build(synthetic_dataset(n_users=300, n_items=500, mean_degree=20.0, seed=3,
+                                with_kg=model == "KHGRec"))
+    rec.init_weights(0)
+    te = Trainer(rec.bundle, seed=0, extras=rec.extras, graphs=False)
+    tg = Trainer(rec.bundle, seed=0, extras=rec.extras)
+    batches = te.sample_epoch()
+    before = dict(tsp.LAUNCHES)
+    te.train_step(tuple(t[0] for t in batches), te.epoch_keys(1)[0])
+    torch.cuda.synchronize()
+    eager = {k: n - before[k] for k, n in tsp.LAUNCHES.items() if n != before[k]}
+    assert eager.get("segment_spmm_rows", 0) + eager.get("segment_spmm_dedup", 0) > 0
+    tg.run_epoch(0)
+    before = dict(tsp.LAUNCHES)
+    tg.run_epoch(1)
+    torch.cuda.synchronize()
+    assert tsp.LAUNCHES == before  # every step of the second epoch a replay
+    assert sorted(tg._step_graphs) == ["full"]
+    assert tg._step_graphs["full"][0].launches == eager
+    replays = 2 * tg.n_batches - GRAPH_WARMUP_STEPS
+    assert tg.replays == {"full": replays}
+    assert tg.replayed_launches() == {k: replays * n for k, n in eager.items()}
+    tg.encode()
+    tg.encode()  # cached: no second replay
+    assert tg.replays["encode"] == 1
+    enc = tg._encode_graph.graph.launches
+    assert sum(enc.values()) > 0
+    assert tg.replayed_launches() == {k: replays * eager.get(k, 0) + enc.get(k, 0)
+                                      for k in set(eager) | set(enc)}
