@@ -93,7 +93,9 @@ Phases, in order; any failure exits non-zero:
      (a whole `Recommender.train()` epoch at the LastFM shape, its
      examples/s and Recall@20 beside the untrained state's; 5 `Trainer`
      steps at ML-1M density), top-20 for 8 users through `Retriever`, and
-     the replayed step bit for bit the eager step after 1 and 8 steps;
+     the replayed step bit for bit the eager step after 1 and 8 steps; the
+     untrained state's evaluation launches the top-k select once a block of
+     users;
  13. the other twelve models that read only the CF adjacency (MF, HCCF,
      HGCN, SHT, DirectAU, SimGCL, XSimGCL, NCL, MixGCF, SSL4Rec, BUIR,
      SelfCF) at the LastFM shape with their MODEL_DEFAULTS, width 64 and
@@ -209,6 +211,13 @@ Phases, in order; any failure exits non-zero:
      process group is SIGKILLed once its first checkpoint (epoch 10) exists; the
      restart carries --resume once, and its epochs and final metrics equal an
      uninterrupted run's bit for bit.
+ 26. top-k select: the evaluation's masked top-k (`ops/kernels/topk_select.py`,
+     `csrc/topk_select.cu`) at the LightGCN Amazon-Book cell's block (512 users x
+     91,599 items, k 40, rated lists of up to 492 ids), ids and values bit for
+     bit the mask and stable sort's on the card, and at k 300 (two rounds of the
+     kernel's 256 columns) too, one launch each; a JSON row with the kernel's ms
+     a call between CUDA events (20 calls back to back), the stable sort's, and
+     the read bound (the scores read once at 3.35 TB/s).
 
 Each phase's seconds are printed as it ends (`[time]`), and all of them
 with the total before the result lines.
@@ -298,7 +307,7 @@ TRAIN_STEPS = 5  # Trainer steps in the phases without a whole epoch
 KHGREC_TRAIN = dict(hyper_dim=D, relation_dim=32, n_layers=2, batch_size=2048,
                     batch_size_kg=8192, mode="full", drop_rate=0.2, p=0.3, temp=1.0,
                     cl_rate=0.01, lrate=0.001, compute_dtype="bfloat16", eval_user_batch=512)
-SOURCES = ("segment_spmm", "gather_fusion")  # csrc/<name>.cu
+SOURCES = ("segment_spmm", "gather_fusion", "topk_select")  # csrc/<name>.cu
 # figures of earlier designs, printed beside this run's (this script on an NVIDIA H100 80GB HBM3
 # at 700 W): kernels 1, 2 and 4 in the code before the int8 and probe kernels were redesigned,
 # kernel 3 in its f64 design (the base kernel on an int8 table with f64 sums, a dequantisation
@@ -664,12 +673,14 @@ def phase_build() -> None:
         build,
         gather_fusion,
         segment_spmm,
+        topk_select,
     )
 
     t0 = time.time()
     build.build_libraries(SOURCES)  # one nvcc per source, started together
     segment_spmm._library()
     gather_fusion._library()
+    topk_select._library()
     log(f"[build] {', '.join(f'{n}.cu' for n in SOURCES)} built and loaded in "
         f"{time.time() - t0:.2f} s")
     for name in SOURCES:
@@ -1936,7 +1947,15 @@ def phase_lightgcn(shape: str, data, kname: str, card: str, fit: bool, model: st
     step = step_vs_plain(tag, bundle, trainer.extras, tuple(t[0] for t in batches),
                          trainer.edge_keys(), per_step)
     _, enc_err, _ = encode_vs_plain(tag, rec.encode, bundle, rec.extras, per_enc)
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import topk_select
+
+    topk_select.LAUNCHES["topk_select"] = 0
     untrained = rec.evaluate()
+    n_pad = rec.cf_dev.eval_data.test_users.shape[0]
+    blocks = n_pad // min(cfg.eval_user_batch, n_pad)
+    if topk_select.LAUNCHES["topk_select"] != blocks:
+        raise AssertionError(f"{tag}: an evaluation of {blocks} blocks launched the top-k "
+                             f"select {topk_select.LAUNCHES['topk_select']} times")
 
     # --- the main path, counted: steps and encodes as replayed CUDA graphs
     _zero_spmm_launches()
@@ -4116,6 +4135,63 @@ def phase_sharded(graphs, card: str) -> dict:
     return out
 
 
+# the evaluation block of the LightGCN Amazon-Book cell: users, items, k, and
+# the widest user's training items (615 interactions, 80% to training)
+TOPK_BLOCK = dict(users=512, items=91599, k=40, max_rated=492)
+
+
+def phase_topk(card: str) -> dict:
+    """The masked top-k select at the evaluation's block against the mask and
+    stable sort on the card, bit for bit; its time a call between CUDA events
+    (20 calls back to back, so the host's launches overlap the device's
+    work), the sort's, and the read bound."""
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import topk_select as T
+
+    b, n, k, deg = (TOPK_BLOCK[x] for x in ("users", "items", "k", "max_rated"))
+    g = torch.Generator(DEVICE).manual_seed(SEED)
+    scores = torch.randn(b, n, device=DEVICE, generator=g)
+    width = torch.randint(0, deg + 1, (b,), device=DEVICE, generator=g)
+    width[0] = deg
+    rated = torch.randint(0, n, (b, deg), device=DEVICE, generator=g, dtype=torch.int32)
+    rated[torch.arange(deg, device=DEVICE)[None, :] >= width[:, None]] = -1
+    for kk in (k, 300):  # 300: two rounds of KMAX columns
+        before = T.LAUNCHES["topk_select"]
+        vals, ids = T.topk_select(scores, rated, kk)
+        want_vals, want_ids = T.topk_select_reference(scores, rated, kk)
+        torch.cuda.synchronize()
+        if not (torch.equal(ids, want_ids)
+                and torch.equal(vals.view(torch.int32), want_vals.view(torch.int32))):
+            raise AssertionError(f"topk_select differs from the mask and stable sort at k {kk}")
+        if T.LAUNCHES["topk_select"] != before + 1:
+            raise AssertionError(f"topk_select: {T.LAUNCHES['topk_select'] - before} launches "
+                                 f"at k {kk}, expected 1")
+
+    def per_call(fn, calls: int = 20) -> float:
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(5):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(calls):
+                fn()
+            e.record()
+            torch.cuda.synchronize()
+            times.append(s.elapsed_time(e) / calls)
+        return sorted(times)[len(times) // 2]
+
+    row = dict(name="topk_select", tpu_kernel=None, shape=[b, n], k=k,
+               bound_ms=round(b * n * 4 / HBM_BYTES_PER_S * 1e3, 4),
+               kernel_ms=round(per_call(lambda: T.topk_select(scores, rated, k)), 4),
+               sort_ms=round(per_call(lambda: T.topk_select_reference(scores, rated, k)), 4),
+               kernel_ms_k300=round(per_call(lambda: T.topk_select(scores, rated, 300)), 4),
+               card=card)
+    log(f"[topk] {json.dumps(row)}")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -4212,6 +4288,7 @@ def main() -> int:
     parallel = timed("23 parallel", phase_parallel, lastfm, card)
     supervised = timed("24 supervisor", phase_supervisor, card)
     sharded = timed("25 sharded", phase_sharded, graphs, card)
+    rows.append(timed("26 top-k select", phase_topk, card))
     (OUT_DIR / "summary.json").write_text(json.dumps(dict(
         kernels=rows, slices=summaries, training=trains, hd=hd, hd_variants=variants,
         prop_cache=caches, family=family, lightgcn=lightgcn, zoo=zoo, joint=joint, sgl=sgl,

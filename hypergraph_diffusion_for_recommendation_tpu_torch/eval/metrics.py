@@ -16,11 +16,13 @@ training (id -2: unretrievable, but in the denominators).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..data.device import EvalData
-from ..ops.topk import exact_scores, masked_topk
+from ..ops.topk import exact_f32, exact_scores, masked_topk
 from ..utils.spans import EVAL_METRICS, EVAL_SCORE, EVAL_TOPK, span
 
 
@@ -36,13 +38,14 @@ def ranking_metrics(
     "ndcg": ...} as tensors on the embeddings' device, ordered like
     `top_ns`."""
     max_n = max(int(n) for n in top_ns)
+    test_users = eval_data.test_users.long()
 
     def top_ids(s: int, e: int) -> torch.Tensor:
-        users = eval_data.test_users[s:e].long()
+        users = test_users[s:e]
         with span(EVAL_SCORE):
-            scores = exact_scores(user_emb[users], item_emb)
+            scores = exact_scores(user_emb.index_select(0, users), item_emb)
         with span(EVAL_TOPK):
-            return masked_topk(scores, rated_pad[users], max_n)[1]
+            return masked_topk(scores, rated_pad.index_select(0, users), max_n)[1]
 
     return _metrics(top_ids, eval_data, top_ns, block, user_emb.device, "ranking_metrics")
 
@@ -60,50 +63,66 @@ def metrics_from_topk(
                     "metrics_from_topk")
 
 
+@functools.lru_cache(maxsize=None)
+def _tables(top_ns: tuple[int, ...], dev: torch.device) -> tuple[torch.Tensor, ...]:
+    """The cutoffs' constants on `dev`, made once: the cutoffs; ctable[k] =
+    sum_{n<k} 1/log2(n+2), computed in float64 then cast, as the JAX
+    package's discount table is; and `take` [max_n, 3 * len(top_ns)], whose
+    product with a row of hits (1 at each top-k position that is a test
+    item) gives the hits, the hits again and the DCG at each cutoff."""
+    max_n = max(top_ns)
+    d = 1.0 / np.log2(np.arange(max_n) + 2.0)
+    disc = torch.as_tensor(np.concatenate([[0.0], np.cumsum(d)]), dtype=torch.float32, device=dev)
+    pos_disc = 1.0 / torch.log2(torch.arange(max_n, dtype=torch.float32, device=dev) + 2.0)
+    ns = torch.as_tensor(top_ns, device=dev)
+    within = (torch.arange(max_n, device=dev)[:, None] < ns[None, :]).float()
+    return ns, disc, torch.cat([within, within, within * pos_disc[:, None]], dim=1)
+
+
 def _metrics(top_ids, eval_data: EvalData, top_ns, block: int, dev, name: str) -> dict:
     """Hit/Precision/Recall/NDCG over the padded test users, a block at a
     time; `top_ids(s, e)` gives the top-max_n ids of users s..e-1."""
     top_ns = tuple(int(n) for n in top_ns)
-    max_n = max(top_ns)
+    max_n, n_cut = max(top_ns), len(top_ns)
     n_pad = eval_data.test_users.shape[0]
     if n_pad == 0:
         raise ValueError(f"{name}: empty eval set (0 padded test users); nothing to score")
     block = min(block, n_pad)
     if n_pad % block:
         raise ValueError(f"{name}: {n_pad} padded test users is not a multiple of {block}")
-    # ctable[k] = sum_{n<k} 1/log2(n+2), computed in float64 then cast, as
-    # the JAX package's discount table is
-    d = 1.0 / np.log2(np.arange(max_n) + 2.0)
-    disc = torch.as_tensor(np.concatenate([[0.0], np.cumsum(d)]), dtype=torch.float32, device=dev)
-    pos_disc = 1.0 / torch.log2(torch.arange(max_n, dtype=torch.float32, device=dev) + 2.0)
+    ns, disc, take = _tables(top_ns, torch.device(dev))
+    # what the test set alone decides, for every padded user at once, so that
+    # a block launches only what reads its top-k ids: each user's weights of
+    # (hits, hits, DCG) at each cutoff for (hits, recall, NDCG), 0 for a pad
+    vf = eval_data.user_valid.float()[:, None]
+    cnt = eval_data.test_counts.long()[:, None]
+    idcg = disc[torch.minimum(cnt, ns)]
+    weights = vf * torch.cat([
+        torch.ones_like(idcg),
+        (1.0 / torch.clamp(cnt.float(), min=1.0)).expand_as(idcg),
+        torch.where(idcg > 0, 1.0 / torch.clamp(idcg, min=1e-12), 0.0),
+    ], dim=1)
 
-    total = torch.zeros(len(top_ns), 3, dtype=torch.float32, device=dev)
-    for s in range(0, n_pad, block):
-        ids = top_ids(s, s + block)[:, :max_n]
-        with span(EVAL_METRICS):
-            vf = eval_data.user_valid[s : s + block].float()
-            test_pos = eval_data.test_pos_pad[s : s + block]
-            cnt = eval_data.test_counts[s : s + block].long()
-            hit_f = (ids[:, :, None] == test_pos[:, None, :]).any(dim=-1).float()
-            rows = []
-            for n in top_ns:
-                hits_n = hit_f[:, :n].sum(dim=1)
-                dcg_n = (hit_f[:, :n] * pos_disc[:n]).sum(dim=1)
-                idcg_n = disc[torch.clamp(cnt, max=n)]
-                ndcg_n = torch.where(idcg_n > 0, dcg_n / torch.clamp(idcg_n, min=1e-12), 0.0)
-                rec_n = hits_n / torch.clamp(cnt.float(), min=1.0)
-                rows.append(torch.stack([(hits_n * vf).sum(), (rec_n * vf).sum(),
-                                         (ndcg_n * vf).sum()]))
-            total += torch.stack(rows)
+    per_user = torch.empty(n_pad, 3 * n_cut, dtype=torch.float32, device=dev)
+    with exact_f32():
+        for s in range(0, n_pad, block):
+            e = s + block
+            ids = top_ids(s, e)[:, :max_n]
+            with span(EVAL_METRICS):
+                test_pos = eval_data.test_pos_pad[s:e]
+                hit = (ids[:, :, None] == test_pos[:, None, :]).any(dim=-1)
+                torch.mul(hit.float() @ take, weights[s:e], out=per_user[s:e])
+    # the blocks' sums, then their sum: [3, cutoffs] of (hits, recall, NDCG)
+    total = per_user.view(n_pad // block, block, 3, n_cut).sum(1).sum(0)
 
     n_users = float(eval_data.n_test_users)
     n_inter = float(eval_data.total_test_interactions)
-    ns = torch.as_tensor(top_ns, dtype=torch.float32, device=dev)
+    ns = ns.float()
     return {
-        "hit_ratio": total[:, 0] / max(n_inter, 1.0),
-        "precision": total[:, 0] / torch.clamp(n_users * ns, min=1.0),
-        "recall": total[:, 1] / max(n_users, 1.0),
-        "ndcg": total[:, 2] / max(n_users, 1.0),
+        "hit_ratio": total[0] / max(n_inter, 1.0),
+        "precision": total[0] / torch.clamp(n_users * ns, min=1.0),
+        "recall": total[1] / max(n_users, 1.0),
+        "ndcg": total[2] / max(n_users, 1.0),
     }
 
 

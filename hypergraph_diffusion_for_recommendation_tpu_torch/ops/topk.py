@@ -1,9 +1,11 @@
 """Top-K retrieval — the port of the JAX package's `ops/topk.py`.
 
 `lax.top_k` orders equal scores by ascending index; `torch.topk` makes no
-such promise on CUDA. `topk_ids` therefore takes a stable descending
-sort, which keeps equal scores in index order, so both packages return
-the same ids.
+such promise on CUDA. `topk_ids` and `masked_topk` take
+`ops/kernels/topk_select.topk_select`, which returns what a stable
+descending sort returns, equal scores in index order, so both packages
+return the same ids: on the card a CUDA kernel that reads each score once
+and masks as it reads, on the CPU the mask and the stable sort.
 
 `exact_scores` is the [B, d] x [d, I] scoring product of eval and
 serving in exact float32 (the JAX package's `precision="highest"`): it
@@ -20,6 +22,8 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+from .kernels.topk_select import topk_select
 
 NEG_INF = -1e9  # reference masks rated items with -10e8 (base/main_recommender.py:88)
 
@@ -45,26 +49,28 @@ def exact_scores(user_rows: torch.Tensor, item_emb: torch.Tensor) -> torch.Tenso
 def mask_rated(scores: torch.Tensor, rated_pad: torch.Tensor) -> torch.Tensor:
     """NEG_INF into each user's already-rated item slots (a new tensor).
 
-    scores: [B, I]; rated_pad: [B, max_deg] item ids, pad = -1 (pads are
-    written into a spare column that is then dropped)."""
+    scores: [B, I]; rated_pad: [B, max_deg] item ids, pad = -1. An id
+    outside [0, I) is ignored (it is written into a spare column that is
+    then dropped), and a repeated id is harmless."""
     b, n_items = scores.shape
     out = torch.cat([scores, scores.new_zeros(b, 1)], dim=1)
-    cols = torch.where(rated_pad >= 0, rated_pad, n_items).long()
+    cols = torch.where((rated_pad >= 0) & (rated_pad < n_items), rated_pad, n_items).long()
     out.scatter_(1, cols, NEG_INF)
     return out[:, :n_items]
 
 
 def topk_ids(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k over the item axis, ties to the lower index:
-    ([B, I]) -> values, ids each [B, k]."""
-    vals, ids = torch.sort(scores, dim=1, descending=True, stable=True)
-    return vals[:, :k], ids[:, :k]
+    ([B, I]) -> values, ids each [B, min(k, I)]."""
+    return topk_select(scores, None, k)
 
 
 def masked_topk(
     scores: torch.Tensor, rated_pad: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    return topk_ids(mask_rated(scores, rated_pad), k)
+    """`topk_ids` after NEG_INF into each row's rated items (`rated_pad`
+    [B, max_deg], pad -1), which stay candidates at that value."""
+    return topk_select(scores, rated_pad, k)
 
 
 def distributed_topk(

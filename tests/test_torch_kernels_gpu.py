@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import segment_spmm as tsp
+from hypergraph_diffusion_for_recommendation_tpu_torch.ops import topk as tt
+from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import topk_select as tsel
 from _int8_walk import SPAN_F64_ROWS, int8_row_scales, span_graph
 
 
@@ -636,3 +638,161 @@ def test_replayed_launches_come_from_the_capture(cuda, model):
     assert sum(enc.values()) > 0
     assert tg.replayed_launches() == {k: replays * eager.get(k, 0) + enc.get(k, 0)
                                       for k in set(eager) | set(enc)}
+
+
+# --- the masked top-k select (csrc/topk_select.cu): ids and values bit for bit
+# the mask and stable sort's on the card
+
+def _topk_scores(cuda, b: int, width: int, seed: int, kind: str) -> torch.Tensor:
+    g = torch.Generator(cuda).manual_seed(seed)
+    if kind == "ties":  # few distinct values, +-0.0, NaN of both signs, +-inf, a raw -1e9
+        s = torch.randint(-6, 6, (b, width), device=cuda, generator=g).float() / 4
+        for v, j in ((0.0, 3), (-0.0, 5), (float("nan"), 7), (float("inf"), 11),
+                     (float("-inf"), 13), (tt.NEG_INF, 1), (-0.0, 17), (float("nan"), 19),
+                     (-float("nan"), 23)):
+            s[2:, j % width] = v
+        return s
+    s = torch.randn(b, width, device=cuda, generator=g)
+    if kind == "rising":  # scores that grow along the row: the threshold keeps moving
+        s += torch.linspace(0, 8, width, device=cuda)
+    return s
+
+
+def _topk_rated(cuda, b: int, width: int, deg: int, seed: int) -> torch.Tensor:
+    """[b, deg + 4] int32 rated lists, pad -1: where deg >= width, row 0 every
+    item and row 1 all but three; the others up to deg ids, with repeats, and
+    ids >= width."""
+    g = torch.Generator(cuda).manual_seed(seed + 1)
+    rated = torch.randint(0, width, (b, deg + 4), device=cuda, generator=g, dtype=torch.int32)
+    lens = torch.randint(0, deg + 1, (b,), device=cuda, generator=g)
+    rated[torch.arange(deg + 4, device=cuda)[None, :] >= lens[:, None]] = -1
+    rated[:, -4:] = torch.tensor([width, width + 9, -1, 0], device=cuda, dtype=torch.int32)
+    if b > 2 and width <= deg:
+        rated[0, :width] = torch.randperm(width, device=cuda, generator=g).int()
+        rest = torch.randperm(width, device=cuda, generator=g)[3:].int()
+        rated[1, : rest.numel()] = rest
+    return rated
+
+
+def _same_topk(got, want) -> None:
+    (gv, gi), (wv, wi) = got, want
+    assert gi.dtype == wi.dtype == torch.int64 and gv.dtype == torch.float32
+    assert gi.shape == wi.shape
+    assert torch.equal(gi, wi)
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["normal", "rising"])
+@pytest.mark.parametrize("k", [1, 10, 40, 256])
+def test_topk_select_matches_the_sort_at_the_eval_block(cuda, k, kind):
+    # the LightGCN Amazon-Book cell's block: 512 users x 91,599 items, rated
+    # lists up to its widest user's 492 training items
+    scores = _topk_scores(cuda, 512, 91599, seed=k, kind=kind)
+    rated = _topk_rated(cuda, 512, 91599, 492, seed=k)
+    before = dict(tsel.LAUNCHES)
+    got = tsel.topk_select(scores, rated, k)
+    again = tsel.topk_select(scores, rated, k)
+    torch.cuda.synchronize()
+    assert tsel.LAUNCHES == {"topk_select": before["topk_select"] + 2}
+    _same_topk(got, tsel.topk_select_reference(scores, rated, k))
+    _same_topk(again, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rated_form", ["int32", "int64", "none"])
+@pytest.mark.parametrize("k", [1, 10, 40, 256])
+@pytest.mark.parametrize("width", [1, 31, 4097, 91599])
+def test_topk_select_ties_zeros_nan_and_masked_rows(cuda, width, k, rated_form):
+    # odd widths: rows start misaligned; row 0 fully masked and row 1 all but
+    # three where the rated lists can hold every item
+    b = 6
+    scores = _topk_scores(cuda, b, width, seed=width + k, kind="ties")
+    rated = _topk_rated(cuda, b, width, width, seed=width)
+    rated = {"int32": rated, "int64": rated.long(), "none": None}[rated_form]
+    got = tsel.topk_select(scores, rated, k)
+    assert tuple(got[1].shape) == (b, min(k, width))
+    _same_topk(got, tsel.topk_select_reference(scores, rated, k))
+    # a view whose rows start one float later and whose row stride is not the width
+    view = torch.nn.functional.pad(scores, (1, 0))[:, 1:]
+    _same_topk(tsel.topk_select(view, rated, k), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [200, 91599])
+def test_topk_select_places_nan_and_zeros_as_the_card_sort(cuda, width):
+    # the card's sort: +NaN first, -0.0 and +0.0 tied in index order, a NaN
+    # with the sign bit set after -inf (the CPU's sort puts it first)
+    x = torch.full((1, width), -5.0, device=cuda)
+    for j, v in {2: -0.0, 3: 0.0, 5: float("nan"), 6: -float("nan"), 8: float("inf"),
+                 9: 0.0, 10: -0.0, 12: float("-inf")}.items():
+        x[0, j] = v
+    k = min(width, tsel.KMAX)
+    got = tsel.topk_select(x, None, k)
+    _same_topk(got, tsel.topk_select_reference(x, None, k))
+    assert got[1][0, :6].tolist() == [5, 8, 2, 3, 9, 10]
+    if width <= tsel.KMAX:
+        assert got[1][0, -2:].tolist() == [12, 6]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width,k", [(5000, 257), (5000, 3 * 256 + 7), (5000, 5000),
+                                     (91599, 600)])
+def test_topk_select_serves_k_above_kmax_in_rounds(cuda, width, k):
+    # past KMAX the kernel reads the row again a round of KMAX columns, each
+    # below the last key of the one before; one launch whatever k is
+    scores = _topk_scores(cuda, 8, width, seed=k, kind="ties")
+    rated = _topk_rated(cuda, 8, width, 300, seed=k)
+    before = dict(tsel.LAUNCHES)
+    got = tsel.topk_select(scores, rated, k)
+    assert tsel.LAUNCHES == {"topk_select": before["topk_select"] + 1}
+    _same_topk(got, tsel.topk_select_reference(scores, rated, k))
+    _same_topk(tsel.topk_select(scores, None, k), tsel.topk_select_reference(scores, None, k))
+    # and the public functions reach the kernel
+    tt.masked_topk(scores, rated, k)
+    tt.topk_ids(scores, 1)
+    assert tsel.LAUNCHES["topk_select"] == before["topk_select"] + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rated_form", ["int32", "none"])
+@pytest.mark.parametrize("k", [1, 40, 300])
+def test_topk_select_past_one_window_of_the_mask(cuda, k, rated_form):
+    # 262,147 items: three windows of the kernel's 131,072-item bitmap, the
+    # last of 3 items; rated ids in every window, row 0 every item rated and
+    # row 1 all but three; rows start misaligned in a view
+    width, b = 2 * 131072 + 3, 6
+    scores = _topk_scores(cuda, b, width, seed=k, kind="ties")
+    rated = _topk_rated(cuda, b, width, width, seed=k)
+    rated[2:, :3] = torch.tensor([131071, 131072, 262146], device=cuda, dtype=torch.int32)
+    rated = rated if rated_form == "int32" else None
+    got = tsel.topk_select(scores, rated, k)
+    _same_topk(got, tsel.topk_select_reference(scores, rated, k))
+    view = torch.nn.functional.pad(scores, (3, 0))[:, 3:]
+    _same_topk(tsel.topk_select(view, rated, k), got)
+    if rated is not None:  # the fully masked row: NEG_INF in index order
+        assert got[1][0].tolist() == list(range(min(k, width)))
+        assert bool((got[0][0] == tt.NEG_INF).all())
+
+
+@pytest.mark.gpu
+def test_topk_select_writes_no_score_sized_tensor(cuda):
+    # peak memory of the call: its [B, k] outputs (f32 values, int64 ids) and
+    # nothing else (the mask's bitmap lives in shared memory); the sort path
+    # copies the [B, I] scores several times
+    b, n, k = 512, 91599, 40
+    scores = _topk_scores(cuda, b, n, seed=3, kind="normal")
+    rated = _topk_rated(cuda, b, n, 492, seed=3)
+    tsel.topk_select(scores, rated, k)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = tsel.topk_select(scores, rated, k)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= b * k * (4 + 8)
+    del out
+    torch.cuda.reset_peak_memory_stats()
+    ref = tsel.topk_select_reference(scores, rated, k)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base > b * n * 4
+    del ref
