@@ -75,6 +75,15 @@ def trainer(bundle, seed: int, extras: dict):
     return Trainer(bundle, seed=seed, extras=extras)
 
 
+def dropout_state(trainer):
+    """The state of the generator that the trainer's steps draw their
+    in-step randomness from (feature dropout; the loss gets it as its
+    `generator`), as `torch.Generator.get_state` gives it. A captured step
+    graph registers that generator, so each replay draws from it as an
+    eager step would."""
+    return trainer.drop_gen.get_state()
+
+
 def params(bundle) -> dict:
     return {n: p for n, p in bundle.module.named_parameters()}
 

@@ -1,6 +1,11 @@
 """Cells at a size a test run can hold: the same configurations, traffic and
 code paths as `BENCHMARK.json`'s, with the data and the widths cut so that
 a run takes seconds on a CPU. For tests only: no benchmark run uses them.
+
+The cut is the configuration's own: its file's `small` block, whose `data`
+and `settings` replace those keys of its `data` and `settings`. So a new
+configuration brings its cut in its own file, and nothing here names a
+model.
 """
 
 from __future__ import annotations
@@ -14,15 +19,6 @@ from . import spec
 if str(spec.ROOT) not in sys.path:
     sys.path.insert(0, str(spec.ROOT))
 
-SMALL = {
-    "khgrec": dict(data=dict(n_users=60, n_items=120, n_clusters=4, mean_degree=8.0),
-                   settings=dict(batch_size=64, batch_size_kg=128, hyper_dim=16, relation_dim=8,
-                                 eval_user_batch=32)),
-    "lightgcn": dict(data=dict(n_users=60, n_items=80, n_interactions=900, n_clusters=4,
-                               min_degree=3, block_users=32),
-                     settings=dict(embedding_size=16, batch_size=64, eval_user_batch=32)),
-}
-
 
 def cells(loop: str | None = None) -> list:
     """The names of BENCHMARK.json's cells (whose traffic runs `loop`)."""
@@ -34,7 +30,10 @@ def small_cell(name: str) -> spec.Cell:
     """The cell `name` of BENCHMARK.json at the small size."""
     cell = spec.resolve(name)
     cfg = json.loads(json.dumps(cell.config))
-    cut = SMALL[cfg["reference"]]
+    cut = cfg.get("small")
+    if not isinstance(cut, dict) or not {"data", "settings"} <= set(cut):
+        raise ValueError(f"configuration {cfg.get('name')!r} has no 'small' block with 'data' "
+                         f"and 'settings': its cell {name!r} has no size for a test run")
     cfg["data"].update(cut["data"])
     cfg["settings"].update(cut["settings"])
     return dataclasses.replace(cell, config=cfg)

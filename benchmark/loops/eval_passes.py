@@ -92,8 +92,11 @@ class Loop:
         q = self.p["tail_percentile"]
         tail = statistics.quantiles(times, n=100, method="inclusive")[q - 1] if len(times) > 1 \
             else times[0]
-        return {"eval_users_per_s": len(times) * self.run.sizes["n_test_users"] / wall,
-                "eval_pass_p95_ms": tail * 1e3}
+        # the passes' tail swings with the host's load from machine to machine
+        # more than any bound allows (PERF.md section 2): logged, not a metric
+        self.run.log(f"[window] {len(times)} passes, median {statistics.median(times) * 1e3:.3f}"
+                     f" ms, p{q} {tail * 1e3:.3f} ms")
+        return {"eval_users_per_s": len(times) * self.run.sizes["n_test_users"] / wall}
 
     def traced(self, seconds: float):
         trace, times = profile_window(lambda: self._passes(seconds), EVAL_PASS,

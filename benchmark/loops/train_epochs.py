@@ -10,10 +10,18 @@ Adam got it (the program's read back from its first moment) and the
 parameters' change over those steps, against the plain reference's same
 steps from the same weights, batches and keys (`harness/check.py`).
 
+A step that draws inside its graph (feature dropout) draws from the
+trainer's dropout generator. Its state before the first step is read
+(`program.dropout_state`), and the reference's `loss` gets, as its
+`generator`, one generator set to that state, which serves its steps in
+order, as the program's eager, captured and replayed steps draw from its
+own. A reference whose model draws nothing takes it and leaves it.
+
 Controls and faults put in the program's place (`check`'s `control`):
 "reference", the reference at the configuration's control precision;
 "half_batch", the reference with half of each batch left out, the mean
-taken over the rest.
+taken over the rest. Each follows its steps with a generator of its own
+at the same state.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ class Loop:
         extras = r.ref.initial_extras(r.graph, r.sizes, r.device)
         self.extras0 = {k: v.clone() for k, v in extras.items()}
         self.trainer = program.trainer(r.bundle, r.seed, extras)
+        self.drop_state = program.dropout_state(self.trainer)
         n = self.p["first_steps"]
         self.batches = r.ref.draw_batches(r.graph, r.sizes, n, r.gen, r.device)
         self.keys = torch.randint(0, 1 << 32, (n, r.ref.n_edge_keys(), 2), generator=r.gen,
@@ -112,8 +121,9 @@ class Loop:
 
     def reference(self, precision: str, batches, flops: dict | None = None) -> dict:
         """The reference's first steps from the benchmark's weights, extras,
-        batches and keys, with its own Adam (the first step's FLOPs counted
-        into `flops`)."""
+        batches and keys, with its own Adam, drawing from a generator at the
+        program's dropout state before its first step (the first step's
+        FLOPs counted into `flops`)."""
         from reference.common import Adam
 
         r = self.run
@@ -121,12 +131,15 @@ class Loop:
         params = {k: v.detach().clone() for k, v in r.weights.items()}
         adam = Adam(params, s["lrate"], s["weight_decay"])
         extras = self.extras0
+        gen = torch.Generator(r.device)
+        gen.set_state(self.drop_state)
         out = {"losses": []}
         for step, batch in enumerate(batches):
             leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
             key_list = [tuple(int(w) for w in k) for k in self.keys[step].tolist()]
             with counting(flops if step == 0 else None):
-                loss, extras = r.ref.loss(leaves, extras, batch, key_list, r.graph, s, precision)
+                loss, extras = r.ref.loss(leaves, extras, batch, key_list, r.graph, s, precision,
+                                          generator=gen)
                 grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
             grads = {k: torch.zeros_like(v) if g is None else g
                      for (k, v), g in zip(leaves.items(), grads)}

@@ -265,8 +265,10 @@ def _contrast(a: torch.Tensor, b: torch.Tensor, temp: float, precision: str) -> 
     return -torch.mean(torch.log(nume / deno))
 
 
-def loss(p: dict, extras: dict, batch, keys, g: Graph, s: dict, precision: str):
-    """(the step's loss, the next step's extras)."""
+def loss(p: dict, extras: dict, batch, keys, g: Graph, s: dict, precision: str,
+         generator: torch.Generator | None = None):
+    """(the step's loss, the next step's extras). KHGRec's edge dropout
+    comes from `keys`; it draws nothing from `generator`."""
     users, pos, neg, h, r, pt, nt = (x.long() for x in batch)
     with dense_precision(precision):
         u_cf, i_cf, ent, fused = forward(p, extras, g, s, precision, keys, 1.0 - s["drop_rate"])

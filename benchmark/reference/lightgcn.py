@@ -105,7 +105,10 @@ def forward(p: dict, g: Graph, s: dict, precision: str):
     return emb[: g.cf.n_users], emb[g.cf.n_users:]
 
 
-def loss(p: dict, extras: dict, batch, keys, g: Graph, s: dict, precision: str):
+def loss(p: dict, extras: dict, batch, keys, g: Graph, s: dict, precision: str,
+         generator: torch.Generator | None = None):
+    """(the step's loss, the next step's extras); LightGCN draws nothing
+    from `generator`."""
     users, pos, neg = (x.long() for x in batch)
     with dense_precision(precision):
         u, i = forward(p, g, s, precision)

@@ -1,5 +1,8 @@
 """The readers of the program's own spans, on small synthetic traces whose
-numbers are worked out by hand."""
+numbers are worked out by hand, and which cells may list the metrics that
+read them."""
+
+import json
 
 import pytest
 
@@ -103,10 +106,62 @@ def test_a_missing_span_reads_none(metric, kept):
     assert read(metric, {"trace": empty, "units": 2}) is None
 
 
+# the loop whose runs record the ranges that each family of metrics reads:
+# the Trainer's spans (`trainer.*`) in `train_epochs`, the evaluation's
+# (`eval.*`: the program's and the benchmark's pass ranges) in `eval_passes`
+SPAN_LOOPS = {"trainer.": "train_epochs", "eval.": "eval_passes"}
+
+
+def misdeclared(bench: dict) -> list:
+    """(metric, cell) for each cell that a `trainer.*` or `eval.*` metric
+    lists and that is not in `bench`, or whose traffic runs another loop
+    than the one that records the metric's ranges."""
+    workloads = {w["name"] for w in bench["workloads"]}
+    bad = []
+    for m in bench["per_layer"]:
+        loop = next((v for k, v in SPAN_LOOPS.items() if m["name"].startswith(k)), None)
+        if loop is None:
+            continue
+        for cell in m["workloads"]:
+            if cell not in workloads or spec.resolve(cell, bench).traffic["loop"] != loop:
+                bad.append((m["name"], cell))
+    return bad
+
+
 def test_the_span_metrics_are_declared_for_the_cells_that_record_the_spans():
-    entries = {m["name"]: m for m in spec.load_spec()["per_layer"]}
+    bench = spec.load_spec()
+    entries = {m["name"]: m for m in bench["per_layer"]}
     for name in SPAN_METRICS:
         m = entries[name]
         assert m["source"] == "program_span" and spec.metric_file(name).exists()
-        assert m["workloads"] == (["lightgcn-amazonbook.eval"] if name.startswith("eval.")
-                                  else ["khgrec-ml1m.train", "lightgcn-amazonbook.train"])
+        assert m["workloads"]
+    assert misdeclared(bench) == []
+
+
+def _listed(bench: dict, prefix: str, cell: str, workload: dict | None = None) -> dict:
+    """`bench` with `cell` added to every `prefix` metric's list (and
+    `workload` to its cells)."""
+    new = json.loads(json.dumps(bench))
+    if workload is not None:
+        new["workloads"].append(workload)
+    for m in new["per_layer"]:
+        if m["name"].startswith(prefix):
+            m["workloads"].append(cell)
+    return new
+
+
+NEW_TRAIN = {"name": "khgrec-ml1m.train-b", "config": "khgrec-ml1m", "traffic": "train",
+             "chips": 1, "why": "x"}
+
+
+@pytest.mark.parametrize("prefix,cell,workload,refused", [
+    ("trainer.", "khgrec-ml1m.train-b", NEW_TRAIN, False),  # a new train cell
+    ("trainer.", "lightgcn-amazonbook.eval", None, True),  # its loop runs no Trainer epoch
+    ("eval.", "lightgcn-amazonbook.train", None, True),  # its loop runs no evaluation pass
+    ("trainer.", "no-such.train", None, True),  # no such cell
+])
+def test_a_new_cell_joins_the_span_metrics_by_its_loop(prefix, cell, workload, refused):
+    bench = spec.load_spec()
+    names = [m["name"] for m in bench["per_layer"] if m["name"].startswith(prefix)]
+    bad = misdeclared(_listed(bench, prefix, cell, workload))
+    assert bad == ([(name, cell) for name in names] if refused else [])

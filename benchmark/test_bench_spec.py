@@ -1,13 +1,17 @@
 """BENCHMARK.json's form (keys, names, units, bounds), and every name in it
 against the files it resolves to."""
 
+import dataclasses
 import json
 import re
 import shutil
+import subprocess
+import sys
 
 import pytest
 
 from harness import spec
+from harness.small import cells, small_cell
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -46,7 +50,7 @@ def test_names_units_and_entry_keys(bench):
         assert set(m) == {"name", "unit", "better", "source", "layer", "moves", "workloads"}
         assert UNIT.match(m["unit"])
     assert {m["name"] for m in bench["end_to_end"]} == {
-        "train_examples_per_s", "eval_users_per_s", "eval_pass_p95_ms", "setup_s"}
+        "train_examples_per_s", "eval_users_per_s", "setup_s"}
 
 
 def test_every_cell_resolves_and_reports_what_it_must(bench):
@@ -69,14 +73,21 @@ def test_every_cell_resolves_and_reports_what_it_must(bench):
             assert w["name"] in e2e[name]["workloads"]
 
 
+def _copy(tmp_path):
+    """(checkout, its benchmark directory, {file: bytes}): a copy of the
+    benchmark's directory in a new checkout, with its files as copied."""
+    root = tmp_path / "checkout"
+    shutil.copytree(spec.BENCH_DIR, root / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return root, root / "benchmark", {
+        p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
+
+
 def test_a_cell_is_added_without_editing_a_file(tmp_path, bench):
     """A copy of the benchmark with one more cell, made only of new files and
     entries: a configuration, a traffic mix with a loop of its own, and a
     per-layer metric."""
-    root = tmp_path / "checkout"
-    shutil.copytree(spec.BENCH_DIR, root / "benchmark",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    before = {p: p.read_bytes() for p in (root / "benchmark").rglob("*") if p.is_file()}
+    root, _, before = _copy(tmp_path)
     cfg = json.loads((spec.BENCH_DIR / "configs" / "lightgcn-amazonbook.json").read_text())
     cfg["name"] = "lightgcn-newshape"
     (root / "benchmark/configs/lightgcn-newshape.json").write_text(json.dumps(cfg))
@@ -122,3 +133,157 @@ def test_a_missing_file_or_name_fails(bench, tmp_path):
                                 "moves": "setup_s", "workloads": ["khgrec-ml1m.train"]})
     with pytest.raises(FileNotFoundError):
         spec.resolve("khgrec-ml1m.train", broken)
+
+
+# the small cuts as `harness/small.py` held them, by model, before each
+# configuration's file carried its own
+OLD_SMALL = {
+    "khgrec": dict(data=dict(n_users=60, n_items=120, n_clusters=4, mean_degree=8.0),
+                   settings=dict(batch_size=64, batch_size_kg=128, hyper_dim=16, relation_dim=8,
+                                 eval_user_batch=32)),
+    "lightgcn": dict(data=dict(n_users=60, n_items=80, n_interactions=900, n_clusters=4,
+                               min_degree=3, block_users=32),
+                     settings=dict(embedding_size=16, batch_size=64, eval_user_batch=32)),
+}
+
+
+@pytest.mark.parametrize("name", cells())
+def test_the_small_cuts_are_the_old_ones(name):
+    full, small = spec.resolve(name).config, small_cell(name).config
+    cut = OLD_SMALL[full["reference"]]
+    for part in ("data", "settings"):
+        assert small[part] == dict(full[part], **cut[part]), part
+        for key, value in cut[part].items():
+            assert small[part][key] == value and type(small[part][key]) is type(value), key
+
+
+def test_a_configuration_without_its_small_cut_is_named(monkeypatch):
+    resolve = spec.resolve
+
+    def without(name, bench=None):
+        cell = resolve(name, bench)
+        cfg = {k: v for k, v in cell.config.items() if k != "small"}
+        return dataclasses.replace(cell, config=cfg)
+
+    monkeypatch.setattr(spec, "resolve", without)
+    with pytest.raises(ValueError, match="'lightgcn-amazonbook' has no 'small' block"):
+        small_cell("lightgcn-amazonbook.train")
+
+
+# A model that no cell runs: LightGCN with feature dropout on both tables
+# before propagation, drawn in the step from the generator that the trainer
+# passes to the loss. The reference draws the same masks from the generator
+# that the training loop hands it.
+NEW_REFERENCE = '''"""LightGCN with feature dropout (rate `RATE`) on both tables before
+propagation, the masks drawn from the step's generator."""
+
+import torch
+
+from . import lightgcn
+from .lightgcn import *  # noqa: F401,F403
+
+RATE = 0.5
+
+
+def _drop(x, generator):
+    keep = 1.0 - RATE
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def loss(p, extras, batch, keys, g, s, precision, generator=None):
+    dropped = dict(p, user_emb=_drop(p["user_emb"], generator),
+                   item_emb=_drop(p["item_emb"], generator))
+    return lightgcn.loss(dropped, extras, batch, keys, g, s, precision)
+'''
+
+NEW_COUNTS = "from .lightgcn import ADJACENCIES, other_sparse_flops, products, width  # noqa\n"
+
+# The program's LightGCN with the same dropout, drawn from the generator that
+# the trainer gives its loss; then the cell at the small size, with the
+# program's dropout stream handed to the reference, and with it withheld.
+NEW_MODEL_PROBE = """
+import json, sys
+sys.path[:0] = [{bench!r}, {root!r}]
+import torch
+from harness import program, spec
+from harness.small import cells, run_small
+from hypergraph_diffusion_for_recommendation_tpu_torch.ops.dropout import feature_dropout
+import reference.{model} as ref
+
+torch.set_num_threads(1)
+build = program.build
+
+
+def with_dropout(*args, **kwargs):
+    bundle, cfg, inter = build(*args, **kwargs)
+    module, loss = bundle.module, bundle.batch_loss
+    tables = module.forward
+
+    def batch_loss(extras, batch, edge_keys=(), generator=None):
+        def dropped():
+            u, i = tables()
+            return (feature_dropout(u, ref.RATE, generator, True),
+                    feature_dropout(i, ref.RATE, generator, True))
+
+        module.forward = dropped
+        try:
+            return loss(extras, batch, edge_keys, generator)
+        finally:
+            del module.forward
+
+    bundle.batch_loss = batch_loss
+    return bundle, cfg, inter
+
+
+program.build = with_dropout
+out = {{"bench_dir": str(spec.BENCH_DIR), "reference": ref.__file__,
+       "train_cells": cells("train_epochs")}}
+r = run_small({cell!r})
+out["handed"] = {{"correct": r["correct"], "checks": r["checks"]}}
+program.dropout_state = lambda trainer: torch.Generator().manual_seed(12345).get_state()
+r = run_small({cell!r})
+out["withheld"] = {{"correct": r["correct"], "checks": r["checks"]}}
+print(json.dumps(out))
+"""
+
+
+def test_a_new_model_joins_from_new_files_alone(tmp_path, bench):
+    """A copy of the benchmark with a configuration of a model that no cell
+    runs, and its cell, made only of new files and entries: the model's
+    reference and counts, its configuration with its small cut, the cell,
+    and the cell's name in the lists of the metrics it reports. At the small
+    size on the CPU the cell comes out correct, and not correct where the
+    reference's generator is seeded otherwise than the program's."""
+    model, config, cell = "lightgcn_dropout", "lightgcn_dropout-amazonbook", \
+        "lightgcn_dropout-amazonbook.train"
+    root, copy, before = _copy(tmp_path)
+    cfg = json.loads((spec.BENCH_DIR / "configs" / "lightgcn-amazonbook.json").read_text())
+    cfg.update(name=config, reference=model)
+    (copy / "configs" / f"{config}.json").write_text(json.dumps(cfg))
+    (copy / "reference" / f"{model}.py").write_text(NEW_REFERENCE)
+    (copy / "counts" / f"{model}.py").write_text(NEW_COUNTS)
+    new = json.loads(json.dumps(bench))
+    new["configs"].append({"name": config, "source": "x", "file": f"benchmark/configs/{config}.json",
+                           "reduced": [], "why": "x"})
+    new["workloads"].append({"name": cell, "config": config, "traffic": "train", "chips": 1,
+                             "why": "x"})
+    for m in new["end_to_end"] + new["per_layer"]:
+        if m["name"] == "train_examples_per_s" or m["name"].startswith("trainer."):
+            m["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(new))
+
+    probe = NEW_MODEL_PROBE.format(bench=str(copy), root=str(spec.ROOT), model=model, cell=cell)
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                         timeout=600, cwd=str(root))
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["bench_dir"] == str(copy) and got["reference"].startswith(str(copy))
+    assert cell in got["train_cells"]
+    handed, withheld = got["handed"], got["withheld"]
+    assert handed["correct"] is True, handed["checks"]
+    assert handed["checks"]["loss_gap"]["value"] < 1e-6, handed["checks"]
+    assert withheld["correct"] is False, withheld["checks"]
+    assert withheld["checks"]["loss_gap"]["value"] > withheld["checks"]["loss_gap"]["limit"]
+    after = {p: p.read_bytes() for p in before}
+    assert after == before
