@@ -94,8 +94,9 @@ Phases, in order; any failure exits non-zero:
      examples/s and Recall@20 beside the untrained state's; 5 `Trainer`
      steps at ML-1M density), top-20 for 8 users through `Retriever`, and
      the replayed step bit for bit the eager step after 1 and 8 steps; the
-     untrained state's evaluation launches the top-k select once a block of
-     users;
+     untrained state's evaluation is one fused ranking (`score_topk`, no
+     top-k select) where the kernel takes its f32 tables, else the top-k
+     select once a block of users;
  13. the other twelve models that read only the CF adjacency (MF, HCCF,
      HGCN, SHT, DirectAU, SimGCL, XSimGCL, NCL, MixGCF, SSL4Rec, BUIR,
      SelfCF) at the LastFM shape with their MODEL_DEFAULTS, width 64 and
@@ -217,7 +218,14 @@ Phases, in order; any failure exits non-zero:
      bit the mask and stable sort's on the card, and at k 300 (two rounds of the
      kernel's 256 columns) too, one launch each; a JSON row with the kernel's ms
      a call between CUDA events (20 calls back to back), the stable sort's, and
-     the read bound (the scores read once at 3.35 TB/s).
+     the read bound (the scores read once at 3.35 TB/s). Then the fused ranking
+     (`ops/kernels/score_topk.py`, `csrc/score_topk.cu`) at that cell's whole
+     test set (52,736 padded users x 91,599 items at width 64, k 40): ids and
+     values bit for bit its plain version's on tables whose sums are exact in
+     any order, one launch step; a JSON row with its ms a call between CUDA
+     events on N(0, 1) tables beside its f32 FMA bound (2 n I d / 67 TFLOP/s),
+     the two-kernel path's (`exact_scores` and `topk_select` a block of 512
+     users) and the plain version's.
 
 Each phase's seconds are printed as it ends (`[time]`), and all of them
 with the total before the result lines.
@@ -307,7 +315,7 @@ TRAIN_STEPS = 5  # Trainer steps in the phases without a whole epoch
 KHGREC_TRAIN = dict(hyper_dim=D, relation_dim=32, n_layers=2, batch_size=2048,
                     batch_size_kg=8192, mode="full", drop_rate=0.2, p=0.3, temp=1.0,
                     cl_rate=0.01, lrate=0.001, compute_dtype="bfloat16", eval_user_batch=512)
-SOURCES = ("segment_spmm", "gather_fusion", "topk_select")  # csrc/<name>.cu
+SOURCES = ("segment_spmm", "gather_fusion", "topk_select", "score_topk")  # csrc/<name>.cu
 # figures of earlier designs, printed beside this run's (this script on an NVIDIA H100 80GB HBM3
 # at 700 W): kernels 1, 2 and 4 in the code before the int8 and probe kernels were redesigned,
 # kernel 3 in its f64 design (the base kernel on an int8 table with f64 sums, a dequantisation
@@ -672,6 +680,7 @@ def phase_build() -> None:
     from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import (
         build,
         gather_fusion,
+        score_topk,
         segment_spmm,
         topk_select,
     )
@@ -681,6 +690,7 @@ def phase_build() -> None:
     segment_spmm._library()
     gather_fusion._library()
     topk_select._library()
+    score_topk._library()
     log(f"[build] {', '.join(f'{n}.cu' for n in SOURCES)} built and loaded in "
         f"{time.time() - t0:.2f} s")
     for name in SOURCES:
@@ -1947,15 +1957,22 @@ def phase_lightgcn(shape: str, data, kname: str, card: str, fit: bool, model: st
     step = step_vs_plain(tag, bundle, trainer.extras, tuple(t[0] for t in batches),
                          trainer.edge_keys(), per_step)
     _, enc_err, _ = encode_vs_plain(tag, rec.encode, bundle, rec.extras, per_enc)
-    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import topk_select
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import score_topk, topk_select
 
     topk_select.LAUNCHES["topk_select"] = 0
+    score_topk.LAUNCHES["score_topk"] = 0
     untrained = rec.evaluate()
     n_pad = rec.cf_dev.eval_data.test_users.shape[0]
     blocks = n_pad // min(cfg.eval_user_batch, n_pad)
-    if topk_select.LAUNCHES["topk_select"] != blocks:
-        raise AssertionError(f"{tag}: an evaluation of {blocks} blocks launched the top-k "
-                             f"select {topk_select.LAUNCHES['topk_select']} times")
+    # the fused ranking where the kernel takes the tables (one score_topk and no
+    # select), else the blocked path (a select a block)
+    fused = score_topk.covers(rec.user_emb, rec.item_emb, rec.cf_dev.rated_pad,
+                              max(cfg.top_ns))
+    want = (1, 0) if fused else (0, blocks)
+    got = (score_topk.LAUNCHES["score_topk"], topk_select.LAUNCHES["topk_select"])
+    if got != want:
+        raise AssertionError(f"{tag}: an evaluation of {blocks} blocks launched score_topk and "
+                             f"the top-k select {got} times, expected {want}")
 
     # --- the main path, counted: steps and encodes as replayed CUDA graphs
     _zero_spmm_launches()
@@ -4192,6 +4209,80 @@ def phase_topk(card: str) -> dict:
     return row
 
 
+SCORE_TOPK = dict(users=52736, items=91599, width=64, k=40, max_rated=492, block=512)
+
+
+def phase_score_topk(card: str) -> dict:
+    """The fused ranking at the evaluation cell's whole test set (52,736
+    padded users x 91,599 items at width 64, k 40, rated lists of up to 492
+    ids): ids and values bit for bit the plain version's on tables whose
+    sums are exact in any order, one launch step; its time between CUDA
+    events on N(0, 1) tables beside its f32 FMA bound, the two-kernel path's
+    (`exact_scores` and `topk_select`, a block of 512 users at a time) and
+    the plain version's (the scoring and the mask and stable sort)."""
+    import torch
+
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import score_topk as F
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import topk_select as T
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.topk import exact_scores
+
+    n, n_items, d, k, deg, block = (SCORE_TOPK[x] for x in
+                                    ("users", "items", "width", "k", "max_rated", "block"))
+    g = torch.Generator(DEVICE).manual_seed(SEED)
+    users = torch.randperm(n, device=DEVICE, generator=g).int()
+    width = torch.randint(0, deg + 1, (n,), device=DEVICE, generator=g)
+    rated = torch.randint(0, n_items, (n, deg), device=DEVICE, generator=g, dtype=torch.int32)
+    rated[torch.arange(deg, device=DEVICE)[None, :] >= width[:, None]] = -1
+    # multiples of 1/16 in [-1/2, 1/2]: sums exact in any order
+    u = torch.randint(-8, 9, (n, d), device=DEVICE, generator=g).float() / 16
+    items = torch.randint(-8, 9, (n_items, d), device=DEVICE, generator=g).float() / 16
+    before = F.LAUNCHES["score_topk"]
+    vals, ids = F.score_topk(u, users, items, rated, k)
+    want_vals, want_ids = F.score_topk_reference(u, users, items, rated, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(ids, want_ids)
+            and torch.equal(vals.view(torch.int32), want_vals.view(torch.int32))):
+        bad = int((ids != want_ids).any(dim=1).sum())
+        raise AssertionError(f"score_topk differs from its plain version in {bad} of {n} rows")
+    if F.LAUNCHES["score_topk"] != before + 1:
+        raise AssertionError(f"score_topk: {F.LAUNCHES['score_topk'] - before} launch steps, "
+                             f"expected 1")
+    del vals, ids, want_vals, want_ids
+    u = torch.randn(n, d, device=DEVICE, generator=g)
+    items = torch.randn(n_items, d, device=DEVICE, generator=g)
+
+    def two_kernels():
+        for s in range(0, n, block):
+            rows = users[s:s + block].long()
+            T.topk_select(exact_scores(u.index_select(0, rows), items),
+                          rated.index_select(0, rows), k)
+
+    def per_call(fn, calls: int, rounds: int = 5) -> float:
+        fn()
+        times = []
+        for _ in range(rounds):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(calls):
+                fn()
+            e.record()
+            torch.cuda.synchronize()
+            times.append(s.elapsed_time(e) / calls)
+        return sorted(times)[len(times) // 2]
+
+    bound_ms = 2 * n * n_items * d / F32_FLOPS * 1e3
+    kernel_ms = per_call(lambda: F.score_topk(u, users, items, rated, k), 5)
+    row = dict(name="score_topk", tpu_kernel=None, shape=[n, n_items, d], k=k,
+               bound_ms=round(bound_ms, 4), kernel_ms=round(kernel_ms, 4),
+               share_of_bound=round(bound_ms / kernel_ms, 4),
+               two_kernel_ms=round(per_call(two_kernels, 2), 4),
+               plain_ms=round(per_call(
+                   lambda: F.score_topk_reference(u, users, items, rated, k), 1, 3), 4),
+               card=card)
+    log(f"[score_topk] {json.dumps(row)}")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -4289,6 +4380,7 @@ def main() -> int:
     supervised = timed("24 supervisor", phase_supervisor, card)
     sharded = timed("25 sharded", phase_sharded, graphs, card)
     rows.append(timed("26 top-k select", phase_topk, card))
+    rows.append(timed("26 fused ranking", phase_score_topk, card))
     (OUT_DIR / "summary.json").write_text(json.dumps(dict(
         kernels=rows, slices=summaries, training=trains, hd=hd, hd_variants=variants,
         prop_cache=caches, family=family, lightgcn=lightgcn, zoo=zoo, joint=joint, sgl=sgl,

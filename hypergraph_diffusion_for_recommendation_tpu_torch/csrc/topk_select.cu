@@ -25,7 +25,8 @@
 //    card's sort order: score descending, ties to the lower index, and a NaN by its bits, as
 //    cub's radix sort places it (above +inf without the sign bit, below -inf with it; the CPU's
 //    sort puts every NaN first). The output value is read back from the row by id (so a -0.0 or
-//    a NaN keeps its bits), or is -1e9 where the key is that of -1e9.
+//    a NaN keeps its bits), or is -1e9 where the key is that of -1e9. The key, the radix select
+//    and the bitonic sort are topk_common.cuh's, which csrc/score_topk.cu shares.
 //  * The mask: the row's rated ids (pad -1; an id outside [0, I) is ignored, a repeat is harmless)
 //    become a bitmap in shared memory over a window of up to 131,072 items (16 KB; the evaluation's
 //    91,599 items are one window, 11.2 KB). A masked item keeps the value -1e9 and stays a
@@ -51,56 +52,33 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "topk_common.cuh"
+
 namespace {
 
-typedef unsigned long long u64;
+using namespace hd_topk;
 
 constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxK = 256;                       // KMAX: the most keys a round keeps
 constexpr int kVec = 4;                          // float4 loads a thread has in flight a chunk
 constexpr int kChunk4 = kThreads * kVec;         // float4s a chunk
 constexpr int kCap = kMaxK + 4 * kChunk4;        // candidate slots: KMAX kept and a chunk
 constexpr int kWindowWords = 4096;               // bitmap words: a window of 131,072 items
 constexpr int kWindow = kWindowWords * 32;
-constexpr float kNegInf = -1e9f;                 // ops/topk.py NEG_INF
-constexpr uint32_t kKeyNegInf = 0x319194d7u;     // order_key(-1e9f): ~0xce6e6b28
 
 struct Shared {
   u64 buf[kCap];     // candidate keys [0, cnt)
   u64 kept[kMaxK];   // the k largest, gathered by keep_top_k()
   unsigned hist[256];
+  SelectState sel;
   u64 thresh;        // T
-  u64 min_kept;
   int cnt;
-  int cnt_kept;
-  int digit;         // keep_top_k(): the bin of the k-th key, the keys above it, the keys in it
-  int above;
-  int in_bin;
 };
-
-// The score's bits as an unsigned integer in the order of the floats, -0.0 as +0.0; a NaN by its
-// bits, as the card's radix sort orders it.
-__device__ __forceinline__ uint32_t order_key(float x) {
-  uint32_t u = __float_as_uint(x);
-  if ((u << 1) == 0) u = 0;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// The least float whose key is at least `key` (-inf at or below the key of -inf; a NaN, which
-// no float reaches, in the NaN keys above +inf).
-__device__ __forceinline__ float key_floor(uint32_t key) {
-  if (key <= 0x007fffffu) return __uint_as_float(0xff800000u);
-  return __uint_as_float((key & 0x80000000u) ? (key ^ 0x80000000u) : ~key);
-}
 
 // Whether score `x` may enter against `bar` (key_floor of the threshold's high half): at or
 // above it, or at or below -1e9, which the mask may raise, or a NaN.
 __device__ __forceinline__ bool may_enter(float x, float bar) {
   return (x >= bar) | !(x > kNegInf);
 }
-
-__device__ __forceinline__ unsigned lanes_below(int lane) { return (1u << lane) - 1u; }
 
 // Append `key` where `pass` holds, one atomic a warp; every lane of the warp calls it.
 __device__ __forceinline__ void append(Shared& s, bool pass, u64 key, int lane) {
@@ -123,107 +101,28 @@ __device__ __forceinline__ void consider(Shared& s, const uint32_t* bitmap, bool
     const int o = j - w0;
     if ((bitmap[o >> 5] >> (o & 31)) & 1u) key = kKeyNegInf;
   }
-  const u64 full = (static_cast<u64>(key) << 32) | static_cast<uint32_t>(~static_cast<uint32_t>(j));
+  const u64 full = full_key(key, j);
   append(s, cand && full > thresh && full <= lim, full, lane);
 }
 
 // Keep the k largest of the n > k keys in s.buf (exactly k: keys are distinct) in s.buf[0, k),
 // s.cnt = k, and make the k-th largest the threshold. Called by every thread.
-__device__ void keep_top_k(Shared& s, int n, int k, int tid, int lane) {
-  int need = k;
-  u64 prefix = 0;
-  int shift = 64;
-  while (true) {
-    shift -= 8;
-    s.hist[tid] = 0;
-    __syncthreads();
-    for (int i0 = 0; i0 < n; i0 += kThreads) {
-      const int i = i0 + tid;
-      const u64 v = i < n ? s.buf[i] : 0;
-      const bool valid = i < n && (shift == 56 || (v >> (shift + 8)) == prefix);
-      const unsigned d = static_cast<unsigned>(v >> shift) & 255u;
-      const unsigned vm = __ballot_sync(kFull, valid);
-      if (valid) {
-        const unsigned peers = __match_any_sync(vm, d);
-        if (lane == __ffs(peers) - 1) atomicAdd(&s.hist[d], __popc(peers));
-      }
-    }
-    __syncthreads();
-    if (tid < 32) {
-      // lane l holds the bins 255 - 8 l down to 248 - 8 l
-      unsigned c[8];
-      unsigned sum = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        c[j] = s.hist[255 - 8 * lane - j];
-        sum += c[j];
-      }
-      unsigned incl = sum;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const unsigned t = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += t;
-      }
-      const unsigned hit = __ballot_sync(kFull, incl >= static_cast<unsigned>(need));
-      if (lane == __ffs(hit) - 1) {
-        unsigned above = incl - sum;
-        int j = 0;
-        for (; j < 7; ++j) {
-          if (above + c[j] >= static_cast<unsigned>(need)) break;
-          above += c[j];
-        }
-        s.digit = 255 - 8 * lane - j;
-        s.above = static_cast<int>(above);
-        s.in_bin = static_cast<int>(c[j]);
-      }
-    }
-    if (tid == 0) {
-      s.cnt_kept = 0;
-      s.min_kept = ~0ull;
-    }
-    __syncthreads();
-    need -= s.above;
-    prefix = (prefix << 8) | static_cast<u64>(s.digit);
-    if (s.in_bin == need) break;  // every key of the bin is kept: keys >= prefix << shift
-  }
-  const u64 lo = prefix << shift;
-  u64 least = ~0ull;
-  for (int i0 = 0; i0 < n; i0 += kThreads) {
-    const int i = i0 + tid;
-    const u64 v = i < n ? s.buf[i] : 0;
-    const bool keep = i < n && v >= lo;
-    const unsigned m = __ballot_sync(kFull, keep);
-    if (m) {
-      const int leader = __ffs(m) - 1;
-      int base = 0;
-      if (lane == leader) base = atomicAdd(&s.cnt_kept, __popc(m));
-      base = __shfl_sync(kFull, base, leader);
-      if (keep) s.kept[base + __popc(m & lanes_below(lane))] = v;
-    }
-    if (keep && v < least) least = v;
-  }
-#pragma unroll
-  for (int o = 16; o; o >>= 1) {
-    const u64 t = __shfl_xor_sync(kFull, least, o);
-    if (t < least) least = t;
-  }
-  if (lane == 0) atomicMin(&s.min_kept, least);
-  __syncthreads();
-  for (int i = tid; i < k; i += kThreads) s.buf[i] = s.kept[i];
+__device__ void keep_top_k(Shared& s, int n, int k, int tid) {
+  radix_keep_top_k<kThreads>(s.buf, n, k, s.kept, s.hist, s.sel, tid);
   if (tid == 0) {
     s.cnt = k;
-    s.thresh = s.min_kept;
+    s.thresh = s.sel.min_kept;
   }
   __syncthreads();
 }
 
 // After a chunk: select when the buffer could not take another chunk.
-__device__ __forceinline__ void after_chunk(Shared& s, u64& thresh, int k, int tid, int lane) {
+__device__ __forceinline__ void after_chunk(Shared& s, u64& thresh, int k, int tid) {
   __syncthreads();
   const int n = s.cnt;
   __syncthreads();  // every thread has read n before the next chunk appends
   if (n > kMaxK) {
-    keep_top_k(s, n, k, tid, lane);
+    keep_top_k(s, n, k, tid);
     thresh = s.thresh;
   }
 }
@@ -269,7 +168,7 @@ __global__ void __launch_bounds__(kThreads, 4) topk_select_kernel(
         const float x = ok ? base[o] : 0.f;
         consider(s, bitmap, masked, ok, x, w0 + o, w0, thresh, lim, lane);
       }
-      after_chunk(s, thresh, kr, tid, lane);
+      after_chunk(s, thresh, kr, tid);
       const float4* body = reinterpret_cast<const float4*>(base + head);
       for (int c = 0; c < n4; c += kChunk4) {
         const float bar = key_floor(static_cast<uint32_t>(thresh >> 32));
@@ -292,34 +191,16 @@ __global__ void __launch_bounds__(kThreads, 4) topk_select_kernel(
           consider(s, bitmap, masked, ok, v[u].z, j + 2, w0, thresh, lim, lane);
           consider(s, bitmap, masked, ok, v[u].w, j + 3, w0, thresh, lim, lane);
         }
-        after_chunk(s, thresh, kr, tid, lane);
+        after_chunk(s, thresh, kr, tid);
       }
     }
     // the round's kr largest, sorted descending by a bitonic network over a power of two >= kr
     int n = s.cnt;
     if (n > kr) {
-      keep_top_k(s, n, kr, tid, lane);
+      keep_top_k(s, n, kr, tid);
       n = kr;
     }
-    int p = 1;
-    while (p < n) p <<= 1;
-    for (int i = n + tid; i < p; i += kThreads) s.buf[i] = 0;
-    __syncthreads();
-    for (int size = 2; size <= p; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        for (int t = tid; t < p / 2; t += kThreads) {
-          const int lo = 2 * stride * (t / stride) + (t % stride);
-          const int hi = lo + stride;
-          const u64 a = s.buf[lo];
-          const u64 b = s.buf[hi];
-          if ((a < b) == ((lo & size) == 0)) {
-            s.buf[lo] = b;
-            s.buf[hi] = a;
-          }
-        }
-        __syncthreads();
-      }
-    }
+    bitonic_sort_desc<kThreads>(s.buf, n, tid);
     for (int i = tid; i < kr; i += kThreads) {
       const u64 v = s.buf[i];
       const uint32_t id = ~static_cast<uint32_t>(v);

@@ -2,7 +2,11 @@
 `eval/metrics.py`: blocked exact-f32 scoring, rated-item mask, top-k and
 vectorised Hit/Precision/Recall/NDCG (also from given top-k ids:
 `metrics_from_topk`), with the reference's formulas
-(util/evaluation.py):
+(util/evaluation.py). Where the kernel takes the tables (f32 on the
+card, a width and a k within its limits: `ops.kernels.score_topk.covers`)
+every padded test user is scored and ranked by one call of
+`score_topk`, which writes no score matrix; elsewhere a block of users is
+scored with `exact_scores` and ranked with `masked_topk`.
 
   hits[u]    = |top_N(u) ∩ test(u)|
   hit_ratio  = Σ_u hits[u] / Σ_u |test(u)|
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from ..data.device import EvalData
+from ..ops.kernels import score_topk as fused
 from ..ops.topk import exact_f32, exact_scores, masked_topk
 from ..utils.spans import EVAL_METRICS, EVAL_SCORE, EVAL_TOPK, span
 
@@ -38,6 +43,11 @@ def ranking_metrics(
     "ndcg": ...} as tensors on the embeddings' device, ordered like
     `top_ns`."""
     max_n = max(int(n) for n in top_ns)
+    if fused.covers(user_emb, item_emb, rated_pad, max_n):
+        with span(EVAL_TOPK):
+            ids = fused.score_topk(user_emb, eval_data.test_users, item_emb, rated_pad, max_n)[1]
+        return _metrics(lambda s, e: ids[s:e], eval_data, top_ns, block, user_emb.device,
+                        "ranking_metrics")
     test_users = eval_data.test_users.long()
 
     def top_ids(s: int, e: int) -> torch.Tensor:

@@ -7,8 +7,9 @@ module is imported: the CPU tests import every module, and the CPU has
 no `nvcc`.
 
 The library lands in `build/torch_kernels/` at the repository root (a
-directory `.gitignore` lists), named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is loaded.
+directory `.gitignore` lists), named by a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded.
 """
 
 from __future__ import annotations
@@ -44,8 +45,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a hash of the source, the headers of
+    `csrc/` it may include, and the flags."""
+    parts = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    data = b"".join(p.read_bytes() for p in parts) + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(data).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

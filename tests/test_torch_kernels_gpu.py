@@ -796,3 +796,174 @@ def test_topk_select_writes_no_score_sized_tensor(cuda):
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base > b * n * 4
     del ref
+
+
+# --- the fused ranking (csrc/score_topk.cu): the scoring product and the masked
+# top-k in one kernel, against its plain version (cuBLAS and the stable sort)
+
+from hypergraph_diffusion_for_recommendation_tpu_torch.ops.kernels import score_topk as fsk
+
+
+def _ranking_case(cuda, n_users: int, n_items: int, d: int, deg: int, seed: int,
+                  kind: str = "dyadic"):
+    """User and item tables, the users to rank (every row once, shuffled, and
+    some twice) and [n_users, deg + 4] int32 rated lists in no order (pad -1,
+    repeats, ids outside [0, I)). "dyadic": multiples of 1/16 in [-1/2, 1/2],
+    whose sums are exact in any order (many exact ties); "normal": N(0, 1)."""
+    g = torch.Generator(cuda).manual_seed(seed)
+    if kind == "dyadic":
+        u = torch.randint(-8, 9, (n_users, d), device=cuda, generator=g).float() / 16
+        i = torch.randint(-8, 9, (n_items, d), device=cuda, generator=g).float() / 16
+    else:
+        u = torch.randn(n_users, d, device=cuda, generator=g)
+        i = torch.randn(n_items, d, device=cuda, generator=g)
+    users = torch.cat([torch.randperm(n_users, device=cuda, generator=g),
+                       torch.randint(0, n_users, (n_users // 7,), device=cuda, generator=g)])
+    rated = _topk_rated(cuda, n_users, n_items, deg, seed)
+    return u, users.int(), i, rated
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 40, 256])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_score_topk_matches_the_plain_version_bit_for_bit(cuda, d, k):
+    # user and item counts that are not multiples of the kernel's tiles
+    u, users, i, rated = _ranking_case(cuda, 1000, 5003, d, 300, seed=d + k)
+    before = dict(fsk.LAUNCHES)
+    got = fsk.score_topk(u, users, i, rated, k)
+    torch.cuda.synchronize()
+    assert fsk.LAUNCHES == {"score_topk": before["score_topk"] + 1}
+    _same_topk(got, fsk.score_topk_reference(u, users, i, rated, k))
+    _same_topk(fsk.score_topk(u, users.long(), i, None, k),
+               fsk.score_topk_reference(u, users, i, None, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 3, 50])
+def test_score_topk_at_widths_that_are_not_multiples_of_four(cuda, d):
+    # rows that a 16-byte load cannot read, a width below one staged chunk
+    u, users, i, rated = _ranking_case(cuda, 300, 777, d, 100, seed=d)
+    _same_topk(fsk.score_topk(u, users, i, rated, 40),
+               fsk.score_topk_reference(u, users, i, rated, 40))
+    # a row stride past the width
+    wide = torch.nn.functional.pad(i, (0, 3))[:, :d]
+    _same_topk(fsk.score_topk(u, users, wide, rated, 40),
+               fsk.score_topk_reference(u, users, i, rated, 40))
+
+
+@pytest.mark.gpu
+def test_score_topk_at_the_eval_cell(cuda):
+    # the LightGCN Amazon-Book cell: 52,736 padded test users x 91,599 items at
+    # width 64, k 40, rated lists up to its widest user's 492 items
+    u, users, i, rated = _ranking_case(cuda, 52736, 91599, 64, 492, seed=7)
+    users = users[:52736]
+    got = fsk.score_topk(u, users, i, rated, 40)
+    _same_topk(got, fsk.score_topk_reference(u, users, i, rated, 40))
+
+
+@pytest.mark.gpu
+def test_score_topk_masking_cases(cuda):
+    # duplicated item rows (exact ties across items), users who rated all but
+    # two of the items (fewer than k unmasked: masked ids at -1e9 in index
+    # order), rated ids outside [0, I), a zero row against negative items
+    # (signed zero products) and NaN scores of both signs
+    n_users, n_items, d, k = 40, 300, 32, 256
+    u, users, i, rated = _ranking_case(cuda, n_users, n_items, d, n_items, seed=5)
+    i[100:150] = i[10:60]
+    u[3] = 0.0
+    i[7] = -0.5
+    i[20, 5] = float("nan")
+    i[21, 0] = -float("nan")
+    rated[1] = -1
+    rated[1, : n_items - 2] = torch.arange(2, n_items, device=cuda, dtype=torch.int32)
+    rated[2, :4] = torch.tensor([-1, n_items, n_items + 100, 0], device=cuda, dtype=torch.int32)
+    got = fsk.score_topk(u, users, i, rated, k)
+    _same_topk(got, fsk.score_topk_reference(u, users, i, rated, k))
+    row = int((users == 1).nonzero()[0, 0])
+    assert sorted(got[1][row, :2].tolist()) == [0, 1]
+    assert got[1][row, 2:].tolist() == list(range(2, k))
+    assert bool((got[0][row, 2:] == tt.NEG_INF).all())
+
+
+@pytest.mark.gpu
+def test_score_topk_on_random_inputs_within_the_sum_order(cuda):
+    # N(0, 1) tables: the kernel sums over the width in another order than
+    # cuBLAS, so a value may differ by a few ulp of the row's scale, and an id
+    # only where two scores lie that close (a near tie)
+    # only where two scores lie that close (a near tie). The stated tolerance is
+    # the f32 dot product's error bound for either order, d eps sum_k |u_k i_k|,
+    # twice: values ~30 at width 64 differ by a few ulp, far inside it
+    d = 64
+    u, users, i, rated = _ranking_case(cuda, 4096, 20011, d, 300, seed=3, kind="normal")
+    (gv, gi), (wv, wi) = (fsk.score_topk(u, users, i, rated, 40),
+                          fsk.score_topk_reference(u, users, i, rated, 40))
+    rows = u[users.long()].abs()
+    bound = 2 * d * torch.finfo(torch.float32).eps * torch.einsum(
+        "nd,nkd->nk", rows, i[wi].abs())
+    same = gi == wi
+    assert bool(((gv - wv).abs() <= bound)[same].all())
+    # a differing position holds two near-tied scores of the plain version
+    assert bool(((gv - wv).abs() <= 2 * bound)[~same].all())
+    assert float((~same).float().mean()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_score_topk_launches_once_for_an_evaluation(cuda):
+    # ranking_metrics: one score_topk step, no topk_select launch, no [B, I]
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data.device import EvalData
+    from hypergraph_diffusion_for_recommendation_tpu_torch.eval.metrics import ranking_metrics
+
+    n_users, n_items, d = 2048, 30011, 64
+    u, _, i, rated = _ranking_case(cuda, n_users, n_items, d, 200, seed=11)
+    g = torch.Generator(cuda).manual_seed(12)
+    test = torch.randint(0, n_items, (n_users, 8), device=cuda, generator=g, dtype=torch.int32)
+    ed = EvalData(test_users=torch.arange(n_users, device=cuda, dtype=torch.int32),
+                  user_valid=torch.ones(n_users, dtype=torch.bool, device=cuda),
+                  test_pos_pad=test, test_counts=torch.full((n_users,), 8, device=cuda,
+                                                           dtype=torch.int32),
+                  n_test_users=n_users, total_test_interactions=8 * n_users)
+    ranking_metrics(u, i, rated, ed, (10, 20, 40), block=512)
+    torch.cuda.synchronize()
+    before, sel = dict(fsk.LAUNCHES), dict(tsel.LAUNCHES)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = ranking_metrics(u, i, rated, ed, (10, 20, 40), block=512)
+    torch.cuda.synchronize()
+    assert fsk.LAUNCHES == {"score_topk": before["score_topk"] + 1}
+    assert tsel.LAUNCHES == sel
+    # the scores of one block of the blocked path alone would be 512 x I x 4 bytes
+    assert torch.cuda.max_memory_allocated() - base < 512 * n_items * 4 // 2
+    # and the metrics are the blocked path's
+    from hypergraph_diffusion_for_recommendation_tpu_torch.ops.topk import exact_scores, masked_topk
+    ids = torch.cat([masked_topk(exact_scores(u[s:s + 512], i), rated[s:s + 512], 40)[1]
+                     for s in range(0, n_users, 512)])
+    from hypergraph_diffusion_for_recommendation_tpu_torch.eval.metrics import metrics_from_topk
+    want = metrics_from_topk(ids, ed, (10, 20, 40), block=512)
+    for name in got:  # sums exact in any order: the same ids
+        torch.testing.assert_close(got[name], want[name], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_score_topk_writes_no_score_sized_tensor(cuda):
+    # peak memory of the call: its [n, k] outputs and the merge's workspace of
+    # [grid, 2, users a tile, k] keys, each large one perhaps in a cached block
+    # up to 1 MB longer (the caching allocator splits a free block only past
+    # 1 MB of remainder); a [B, I] f32 score matrix is 1.5 GB here
+    n, n_items, d, k = 4096, 91599, 64, 40
+    u, users, i, rated = _ranking_case(cuda, n, n_items, d, 492, seed=13, kind="normal")
+    users = users[:n]
+    fsk.score_topk(u, users, i, rated, k)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fsk.score_topk(u, users, i, rated, k)
+    torch.cuda.synchronize()
+    import ctypes
+
+    work = ctypes.c_int64(0)
+    assert fsk._library().hd_score_topk_workspace(n, n_items, d, k, ctypes.byref(work)) == 0
+    assert 0 < work.value <= 132 * 2 * 128 * k * 8  # [grid, 2, users a tile, k] keys
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= n * k * (4 + 8) + work.value + 3 * 2**20, (peak, n * k * (4 + 8), work.value)
+    assert peak < n * n_items * 4 // 100
+    del out
