@@ -1,12 +1,10 @@
 """On-device ranking evaluation — the port of the JAX package's
-`eval/metrics.py`: blocked exact-f32 scoring, rated-item mask, top-k and
-vectorised Hit/Precision/Recall/NDCG (also from given top-k ids:
-`metrics_from_topk`), with the reference's formulas
-(util/evaluation.py). Where the kernel takes the tables (f32 on the
-card, a width and a k within its limits: `ops.kernels.score_topk.covers`)
-every padded test user is scored and ranked by one call of
-`score_topk`, which writes no score matrix; elsewhere a block of users is
-scored with `exact_scores` and ranked with `masked_topk`.
+`eval/metrics.py`: the ranking of users over the full catalog (`top_items`)
+and vectorised Hit/Precision/Recall/NDCG from its top-k ids
+(`ranking_metrics`; from given ids: `metrics_from_topk`), with the
+reference's formulas (util/evaluation.py). `top_items` is the one place
+the port chooses how users are ranked, for the evaluation, serving and the
+facade alike.
 
   hits[u]    = |top_N(u) ∩ test(u)|
   hit_ratio  = Σ_u hits[u] / Σ_u |test(u)|
@@ -27,8 +25,51 @@ import torch
 
 from ..data.device import EvalData
 from ..ops.kernels import score_topk as fused
-from ..ops.topk import exact_f32, exact_scores, masked_topk
+from ..ops.topk import exact_f32, exact_scores, masked_topk, topk_ids
+from ..parallel.mesh import MODEL_AXIS, axis_size
+from ..parallel.topk import sharded_user_topk
 from ..utils.spans import EVAL_METRICS, EVAL_SCORE, EVAL_TOPK, span
+
+
+def top_items(user_emb: torch.Tensor, users: torch.Tensor, item_emb: torch.Tensor,
+              rated: torch.Tensor | None, k: int, *, block: int, mesh=None,
+              n_items: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The top k items of each user listed in `users` (rows of `user_emb` and
+    `rated`) after its rated items (`rated` [n_users, max_deg], pad -1; None:
+    no mask) were given `ops.topk.NEG_INF`: values f32 and ids int64, each
+    [len(users), min(k, I)], descending, ties to the lower id. On a mesh whose
+    model axis is above 1, `item_emb` is this rank's row block and `n_items`
+    the catalogue's size, and the ranks' top-k merge over the model group
+    (`sharded_user_topk`), `block` users a call; else, where `score_topk`
+    covers the tables (f32 on the card, width and k within its limits), one
+    call for every user, which writes no score matrix; else `block` users at a
+    time through `exact_scores` and `masked_topk`."""
+    if mesh is not None and axis_size(mesh, MODEL_AXIS) > 1:
+        def merged(rows):
+            mask = (torch.full((rows.shape[0], 1), -1, device=rows.device) if rated is None
+                    else rated.index_select(0, rows))
+            with span(EVAL_TOPK):
+                return sharded_user_topk(mesh, user_emb.index_select(0, rows), item_emb, mask, k,
+                                         n_items)
+
+        return _in_blocks(merged, users, block)
+    if fused.covers(user_emb, item_emb, rated, k):
+        with span(EVAL_TOPK):
+            return fused.score_topk(user_emb, users, item_emb, rated, k)
+
+    def blocked(rows):
+        with span(EVAL_SCORE):
+            scores = exact_scores(user_emb.index_select(0, rows), item_emb)
+        with span(EVAL_TOPK):
+            return (topk_ids(scores, k) if rated is None
+                    else masked_topk(scores, rated.index_select(0, rows), k))
+
+    return _in_blocks(blocked, users, block)
+
+
+def _in_blocks(rank, users: torch.Tensor, block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    parts = [rank(users[s:s + block]) for s in range(0, max(users.shape[0], 1), block)]
+    return torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts])
 
 
 def ranking_metrics(
@@ -41,36 +82,10 @@ def ranking_metrics(
 ) -> dict[str, torch.Tensor]:
     """Returns {"hit_ratio": [len(top_ns)], "precision": ..., "recall": ...,
     "ndcg": ...} as tensors on the embeddings' device, ordered like
-    `top_ns`."""
+    `top_ns`, from every padded test user's `top_items`."""
     max_n = max(int(n) for n in top_ns)
-    if fused.covers(user_emb, item_emb, rated_pad, max_n):
-        with span(EVAL_TOPK):
-            ids = fused.score_topk(user_emb, eval_data.test_users, item_emb, rated_pad, max_n)[1]
-        return _metrics(lambda s, e: ids[s:e], eval_data, top_ns, block, user_emb.device,
-                        "ranking_metrics")
-    test_users = eval_data.test_users.long()
-
-    def top_ids(s: int, e: int) -> torch.Tensor:
-        users = test_users[s:e]
-        with span(EVAL_SCORE):
-            scores = exact_scores(user_emb.index_select(0, users), item_emb)
-        with span(EVAL_TOPK):
-            return masked_topk(scores, rated_pad.index_select(0, users), max_n)[1]
-
-    return _metrics(top_ids, eval_data, top_ns, block, user_emb.device, "ranking_metrics")
-
-
-def metrics_from_topk(
-    top_ids: torch.Tensor,
-    eval_data: EvalData,
-    top_ns: tuple[int, ...] = (10, 20, 40),
-    block: int = 256,
-) -> dict[str, torch.Tensor]:
-    """The metrics of `ranking_metrics` from PRE-COMPUTED top-max_n item ids
-    per padded test user ([n_pad, >= max_n], the JAX package's
-    distributed-top-k eval path)."""
-    return _metrics(lambda s, e: top_ids[s:e], eval_data, top_ns, block, top_ids.device,
-                    "metrics_from_topk")
+    ids = top_items(user_emb, eval_data.test_users, item_emb, rated_pad, max_n, block=block)[1]
+    return metrics_from_topk(ids, eval_data, top_ns, block)
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,18 +104,25 @@ def _tables(top_ns: tuple[int, ...], dev: torch.device) -> tuple[torch.Tensor, .
     return ns, disc, torch.cat([within, within, within * pos_disc[:, None]], dim=1)
 
 
-def _metrics(top_ids, eval_data: EvalData, top_ns, block: int, dev, name: str) -> dict:
-    """Hit/Precision/Recall/NDCG over the padded test users, a block at a
-    time; `top_ids(s, e)` gives the top-max_n ids of users s..e-1."""
+def metrics_from_topk(
+    top_ids: torch.Tensor,
+    eval_data: EvalData,
+    top_ns: tuple[int, ...] = (10, 20, 40),
+    block: int = 256,
+) -> dict[str, torch.Tensor]:
+    """The metrics of `ranking_metrics` from PRE-COMPUTED top-max_n item ids
+    per padded test user ([n_pad, >= max_n], the JAX package's
+    distributed-top-k eval path), summed a block of users at a time."""
     top_ns = tuple(int(n) for n in top_ns)
     max_n, n_cut = max(top_ns), len(top_ns)
     n_pad = eval_data.test_users.shape[0]
     if n_pad == 0:
-        raise ValueError(f"{name}: empty eval set (0 padded test users); nothing to score")
+        raise ValueError("metrics_from_topk: empty eval set (0 padded test users)")
     block = min(block, n_pad)
     if n_pad % block:
-        raise ValueError(f"{name}: {n_pad} padded test users is not a multiple of {block}")
-    ns, disc, take = _tables(top_ns, torch.device(dev))
+        raise ValueError(f"metrics_from_topk: {n_pad} padded test users, not a multiple of {block}")
+    dev = top_ids.device
+    ns, disc, take = _tables(top_ns, dev)
     # what the test set alone decides, for every padded user at once, so that
     # a block launches only what reads its top-k ids: each user's weights of
     # (hits, hits, DCG) at each cutoff for (hits, recall, NDCG), 0 for a pad
@@ -117,7 +139,7 @@ def _metrics(top_ids, eval_data: EvalData, top_ns, block: int, dev, name: str) -
     with exact_f32():
         for s in range(0, n_pad, block):
             e = s + block
-            ids = top_ids(s, e)[:, :max_n]
+            ids = top_ids[s:e, :max_n]
             with span(EVAL_METRICS):
                 test_pos = eval_data.test_pos_pad[s:e]
                 hit = (ids[:, :, None] == test_pos[:, None, :]).any(dim=-1)
@@ -145,3 +167,4 @@ def metrics_to_host(metrics: dict, top_ns: tuple[int, ...]) -> dict:
                  for name in ("hit_ratio", "precision", "recall", "ndcg")}
         for k, n in enumerate(top_ns)
     }
+

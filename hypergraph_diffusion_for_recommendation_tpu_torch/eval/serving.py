@@ -6,12 +6,13 @@ port of the JAX package's `eval/serving.py`.
     maps, the per-user rated-item mask and a JSON `meta` blob, so either
     package's `Retriever.load` reads either package's export;
   * `Retriever` holds the tables on the device and answers batched top-k
-    queries: exact-f32 [B, d] x [d, I] scoring, rated-item mask, top-k
-    with ties to the lower item id (ops/topk.py). With a mesh (`mesh=`,
-    every rank of it constructs the Retriever and asks the same queries)
-    each rank holds its row block of the item table and the top-k merges
-    the blocks' over the model group (`parallel.sharded_user_topk`, the
-    JAX `Retriever`, serving.py:83-147).
+    queries through the evaluation's ranking (`eval.metrics.top_items`):
+    exact-f32 scores, rated-item mask, top-k with ties to the lower item
+    id. With a mesh (`mesh=`, every rank of it constructs the Retriever and
+    asks the same queries) each rank holds its row block of the item table,
+    and with a model axis above 1 the top-k merges the blocks' over the
+    model group (`parallel.sharded_user_topk`, the JAX `Retriever`,
+    serving.py:83-147).
 
 Raw-id translation happens on the host: id vocabularies are dataset
 artifacts, not model state.
@@ -26,7 +27,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..ops.topk import exact_scores, masked_topk, topk_ids
+from ..ops.topk import exact_scores
+from .metrics import top_items
 
 
 def _host(a) -> np.ndarray:
@@ -126,35 +128,17 @@ class Retriever:
         raw_ids: bool = True,
     ) -> tuple[np.ndarray, np.ndarray]:
         """Batched retrieval: ([B] raw user ids) -> (ids [B, k], scores
-        [B, k]). `raw_ids=False` returns dense item ids instead of raw.
-        Queries run in device batches of `block` users."""
-        users = self.dense_user_ids(raw_user_ids)
-        masked = exclude_rated and self.rated_pad is not None
-        n = users.shape[0]
-        out_ids = np.empty((n, k), np.int64)
-        out_scores = np.empty((n, k), np.float32)
-        for s in range(0, n, self.block):
-            blk = torch.as_tensor(users[s : s + self.block], device=self.device)
-            if self.mesh is not None:
-                from ..parallel.topk import sharded_user_topk
-
-                rated = (self.rated_pad[blk] if masked
-                         else torch.full((blk.shape[0], 1), -1, device=self.device))
-                vals, ids = sharded_user_topk(self.mesh, self.user_emb[blk], self.item_emb,
-                                              rated, k, self.n_items)
-                out_ids[s : s + blk.shape[0]] = ids.cpu().numpy()
-                out_scores[s : s + blk.shape[0]] = vals.cpu().numpy()
-                continue
-            scores = exact_scores(self.user_emb[blk], self.item_emb)
-            if masked:
-                vals, ids = masked_topk(scores, self.rated_pad[blk], k)
-            else:
-                vals, ids = topk_ids(scores, k)
-            out_ids[s : s + blk.shape[0]] = ids.cpu().numpy()
-            out_scores[s : s + blk.shape[0]] = vals.cpu().numpy()
+        [B, k]), k at most the catalogue's size. `raw_ids=False` returns
+        dense item ids instead of raw. `top_items` ranks the queries, `block`
+        users at a time where it ranks in blocks."""
+        users = torch.as_tensor(self.dense_user_ids(raw_user_ids), device=self.device)
+        vals, ids = top_items(self.user_emb, users, self.item_emb,
+                              self.rated_pad if exclude_rated else None, k, block=self.block,
+                              mesh=self.mesh, n_items=self.n_items)
+        out_ids = ids.cpu().numpy()
         if raw_ids:
             out_ids = self.id2item[out_ids]
-        return out_ids, out_scores
+        return out_ids, vals.cpu().numpy()
 
     def scores(self, raw_user_id) -> np.ndarray:
         """Full-catalog scores for one user (the facade `predict(u)`)."""

@@ -11,8 +11,9 @@ and masks as it reads, on the CPU the mask and the stable sort.
 serving in exact float32 (the JAX package's `precision="highest"`): it
 runs with `torch.backends.cuda.matmul.allow_tf32 = False`, whatever the
 process set, since TF32 keeps about three decimal digits and reorders
-near-ties. The evaluation's ranking scores and selects in one kernel
-instead where it takes the tables (`ops/kernels/score_topk.py`).
+near-ties. The port ranks users through `eval.metrics.top_items`, which
+scores and selects in one kernel instead where it takes the tables
+(`ops/kernels/score_topk.py`).
 
 `distributed_topk` merges the top-k of item shards held by the ranks of
 a process group (`parallel/topk.py`).

@@ -638,10 +638,11 @@ def dryrun_phases(device, sizes: dict) -> dict:
          balanced mode; one epoch and the same evaluation check;
       3. cached propagation (prop_cache_steps 4) over the mesh, two epochs,
          the age threaded through them;
-      4. the distributed top-k's ids bit for bit against `masked_topk`.
+      4. the distributed top-k's ids bit for bit against the plain ranking
+         (`score_topk_reference`: the scores, the mask and a stable sort).
     Returns what each phase measured."""
     from ..eval.metrics import metrics_to_host, ranking_metrics
-    from ..ops.topk import exact_scores, masked_topk
+    from ..ops.kernels.score_topk import score_topk_reference
     from ..train import Trainer
     from .mesh import MODEL_AXIS, make_mesh, row_block
     from .sharded_adj import ShardedCOO
@@ -699,11 +700,11 @@ def dryrun_phases(device, sizes: dict) -> dict:
 
     u, i = trainer.encode()
     users = bundle.cf.eval_data.test_users[:64].long()
-    rated = bundle.cf.rated_pad[users]
-    _, ids = sharded_user_topk(mesh, u[users], row_block(i, mesh), rated, 10, i.shape[0])
-    _, ref = masked_topk(exact_scores(u[users], i), rated, 10)
+    rated = bundle.cf.rated_pad
+    _, ids = sharded_user_topk(mesh, u[users], row_block(i, mesh), rated[users], 10, i.shape[0])
+    _, ref = score_topk_reference(u, users, i, rated, 10)
     if not torch.equal(ids, ref):
-        raise AssertionError("distributed top-k differs from masked_topk")
+        raise AssertionError("distributed top-k differs from the plain ranking")
     out["topk"] = dict(users=int(users.shape[0]), model=mesh.shape[mesh.mesh_dim_names.index(
         MODEL_AXIS)])
     return out

@@ -164,14 +164,11 @@ class Recommender:
 
     def recommend(self, raw_user_id, k: int = 20, exclude_rated: bool = True):
         """Top-k (raw_item_id, score) pairs, ties to the lower item id."""
-        from ..ops.topk import exact_scores, masked_topk, topk_ids
+        from ..eval.metrics import top_items
 
-        uid = self.inter.user[int(raw_user_id)]
-        scores = exact_scores(self.user_emb[uid : uid + 1], self.item_emb)
-        if exclude_rated:
-            vals, ids = masked_topk(scores, self.cf_dev.rated_pad[uid : uid + 1], k)
-        else:
-            vals, ids = topk_ids(scores, k)
+        uid = torch.tensor([self.inter.user[int(raw_user_id)]], device=self.user_emb.device)
+        vals, ids = top_items(self.user_emb, uid, self.item_emb,
+                              self.cf_dev.rated_pad if exclude_rated else None, k, block=1)
         return [(int(self.inter.id2item[i]), float(s))
                 for i, s in zip(ids[0].tolist(), vals[0].tolist())]
 
@@ -191,7 +188,7 @@ class Recommender:
         94-118): each test user's top-k unrated items with their scores, a
         star on each test hit; under the run directory unless `path` is
         given."""
-        from ..ops.topk import exact_scores, masked_topk
+        from ..eval.metrics import top_items
         from ..utils.logging import dump_recommendations, run_dir
 
         cfg = self.cfg
@@ -200,8 +197,8 @@ class Recommender:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         ed = self.cf_dev.eval_data
         users = ed.test_users[: ed.n_test_users].long()
-        scores = exact_scores(self.user_emb[users], self.item_emb)
-        vals, ids = masked_topk(scores, self.cf_dev.rated_pad[users], k)
+        vals, ids = top_items(self.user_emb, users, self.item_emb, self.cf_dev.rated_pad, k,
+                              block=max(ed.n_test_users, 1))
         ids_np = ids.cpu().numpy()
         test_pos = ed.test_pos_pad[: ed.n_test_users].cpu().numpy()
         hits = (ids_np[:, :, None] == test_pos[:, None, :]).any(-1)

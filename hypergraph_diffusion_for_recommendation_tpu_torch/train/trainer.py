@@ -119,7 +119,8 @@ and keys (every rank's generators are seeded alike):
   * the gradient clip's norm adds the row blocks' squares over the model
     group;
   * evaluation with a model axis above 1 scores each rank's item block and
-    merges the top-k over the group (`parallel.sharded_user_topk`);
+    merges the top-k over the group (`eval.metrics.top_items`, through
+    `parallel.sharded_user_topk`);
   * the steps and the encode run eagerly (gloo's collectives of CUDA
     tensors go through the host, which a CUDA graph cannot hold):
     `graphs=True` with a mesh raises; a row-sharded table is gathered once
@@ -145,7 +146,7 @@ import torch
 import torch.distributed as dist
 
 from ..eval import early_stopping
-from ..eval.metrics import metrics_from_topk, metrics_to_host, ranking_metrics
+from ..eval.metrics import metrics_from_topk, metrics_to_host, ranking_metrics, top_items
 from ..models.base import Extras, ModelBundle
 from ..ops.dropout import epoch_key_words, key_words
 from ..ops.sampling import (
@@ -170,7 +171,6 @@ from ..utils.spans import (
     EPOCH,
     EVAL_ENCODE,
     EVAL_TO_HOST,
-    EVAL_TOPK,
     LOSS_TO_HOST,
     SAMPLE,
     STEP_ANNOTATION,
@@ -671,17 +671,10 @@ class Trainer:
         if self.mesh is not None and axis_size(self.mesh, MODEL_AXIS) > 1:
             # the item table as row blocks: each rank's top-k of its block,
             # merged over the model group (the JAX trainer, trainer.py:940-975)
-            from ..parallel.topk import sharded_user_topk
-
             ed, block = cf.eval_data, cfg.eval_user_batch
-            local = row_block(i, self.mesh)
-            ids = []
-            for s in range(0, ed.test_users.shape[0], block):
-                users = ed.test_users[s:s + block].long()
-                with span(EVAL_TOPK):
-                    ids.append(sharded_user_topk(self.mesh, u[users], local, cf.rated_pad[users],
-                                                 max(top_ns), i.shape[0])[1])
-            m = metrics_from_topk(torch.cat(ids), ed, top_ns, block=block)
+            ids = top_items(u, ed.test_users, row_block(i, self.mesh), cf.rated_pad, max(top_ns),
+                            block=block, mesh=self.mesh, n_items=i.shape[0])[1]
+            m = metrics_from_topk(ids, ed, top_ns, block=block)
         else:
             m = ranking_metrics(u, i, cf.rated_pad, cf.eval_data, top_ns,
                                 block=cfg.eval_user_batch)

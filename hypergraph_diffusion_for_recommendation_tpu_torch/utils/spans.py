@@ -22,10 +22,13 @@ The names, which the benchmark's readers and the tests cite from here
     trainer.capture:<phase>:<branch>  a step graph's capture
     trainer.capture:encode            the encode graph's capture
     eval.encode                       Trainer.encode when it encodes
-    eval.score                        a block's scoring product (the blocked
+    eval.score                        a block's scoring product in
+                                      `eval.metrics.top_items` (the blocked
                                       path; the fused path has none)
-    eval.topk                         the fused path's one `score_topk` call,
-                                      scoring and top-k of every test user;
+    eval.topk                         in `top_items`, for every caller (the
+                                      evaluation, serving, the facade): the
+                                      fused path's one `score_topk` call,
+                                      scoring and top-k of every listed user;
                                       else a block's masked top-k (on a
                                       mesh, its sharded top-k)
     eval.metrics                      a block's hit, recall and NDCG sums

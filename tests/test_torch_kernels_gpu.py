@@ -944,6 +944,66 @@ def test_score_topk_launches_once_for_an_evaluation(cuda):
 
 
 @pytest.mark.gpu
+def test_serving_and_the_facade_rank_with_score_topk(cuda, tmp_path, monkeypatch):
+    # Retriever.topk (with and without the rated items), Recommender.recommend
+    # and the dump on covered tables: one score_topk step each, no topk_select
+    # launch, and score_topk's own values and ids
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data import synthetic_dataset
+    from hypergraph_diffusion_for_recommendation_tpu_torch.eval.serving import Retriever
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender
+    from hypergraph_diffusion_for_recommendation_tpu_torch.utils import logging as tlog
+
+    rec = Recommender(make_config("LightGCN", embedding_size=64, eval_user_batch=64,
+                                  item_ranking=(10, 20), output_dir=str(tmp_path / "out")),
+                      device=cuda)
+    rec.build(synthetic_dataset(n_users=600, n_items=3001, mean_degree=20.0, seed=5))
+    g = torch.Generator(cuda).manual_seed(9)
+    rec.user_emb = torch.randn(rec.inter.n_users, 64, device=cuda, generator=g)
+    rec.item_emb = torch.randn(rec.inter.n_items, 64, device=cuda, generator=g)
+    rated, ed = rec.cf_dev.rated_pad, rec.cf_dev.eval_data
+    retr = Retriever.load(rec.export_embeddings(str(tmp_path / "emb.npz")), device=cuda)
+    raw = [int(u) for u in rec.inter.id2user[::5]]
+    dense = torch.tensor([rec.inter.user[u] for u in raw], device=cuda)
+
+    def one_step(fn):
+        torch.cuda.synchronize()
+        before, sel = fsk.LAUNCHES["score_topk"], tsel.LAUNCHES["topk_select"]
+        out = fn()
+        torch.cuda.synchronize()
+        assert fsk.LAUNCHES["score_topk"] == before + 1 and tsel.LAUNCHES["topk_select"] == sel
+        return out
+
+    def host(t):
+        return t.cpu().numpy()
+
+    for exclude in (True, False):
+        ids, scores = one_step(lambda: retr.topk(raw, k=20, exclude_rated=exclude,
+                                                 raw_ids=False))
+        vals, want = fsk.score_topk(rec.user_emb, dense, rec.item_emb,
+                                    rated if exclude else None, 20)
+        np.testing.assert_array_equal(ids, host(want))
+        np.testing.assert_array_equal(scores.view(np.int32), host(vals).view(np.int32))
+    got = one_step(lambda: rec.recommend(raw[0], k=20))
+    vals, want = fsk.score_topk(rec.user_emb, dense[:1], rec.item_emb, rated, 20)
+    assert got == [(int(rec.inter.id2item[i]), v) for i, v in zip(host(want)[0].tolist(),
+                                                                   host(vals)[0].tolist())]
+    written = {}
+    real = tlog.dump_recommendations
+
+    def keep(path, users, id2item, top_ids, top_scores, hits):
+        written.update(ids=top_ids, scores=top_scores)
+        return real(path, users, id2item, top_ids, top_scores, hits)
+
+    monkeypatch.setattr(tlog, "dump_recommendations", keep)
+    one_step(lambda: rec.dump_recommendations(str(tmp_path / "dump.txt"), k=20))
+    vals, want = fsk.score_topk(rec.user_emb, ed.test_users[: ed.n_test_users], rec.item_emb,
+                                rated, 20)
+    np.testing.assert_array_equal(written["ids"], host(want))
+    np.testing.assert_array_equal(written["scores"].view(np.int32), host(vals).view(np.int32))
+
+
+@pytest.mark.gpu
 def test_score_topk_writes_no_score_sized_tensor(cuda):
     # peak memory of the call: its [n, k] outputs and the merge's workspace of
     # [grid, 2, users a tile, k] keys, each large one perhaps in a cached block

@@ -1,9 +1,9 @@
 """The functions the port's already-ported modules lacked, against the JAX
 package on the CPU, one parametrised test per JAX module:
 
-  * `train/recommender.py`: `Recommender.from_conf` (the same Config) and
+  * `train/recommender.py`: `Recommender.from_conf` (the same Config),
     `dump_recommendations` (the same file, byte for byte, from the same
-    tables);
+    tables) and `recommend` (the same items, their scores within 1e-6);
   * `data/synthetic.py`: the cold-item, hierarchical, affinity, min-degree
     and popularity-scaled regimes and `oracle_metrics`: bit for bit;
   * `data/normalize.py`, `data/knowledge.py` (`adjacency_dict`,
@@ -80,7 +80,7 @@ def split():
 
 # -- train/recommender.py ------------------------------------------------------
 
-@pytest.mark.parametrize("what", ["from_conf", "dump_recommendations"])
+@pytest.mark.parametrize("what", ["from_conf", "dump_recommendations", "recommend"])
 def test_recommender_matches_jax(what, split, tmp_path):
     if what == "from_conf":
         path = tmp_path / "LightGCN.conf"
@@ -105,6 +105,15 @@ def test_recommender_matches_jax(what, split, tmp_path):
     i = rng.standard_normal((rec.inter.n_items, 16)).astype(np.float32)
     rec.user_emb, rec.item_emb = torch.as_tensor(u), torch.as_tensor(i)
     jr.user_emb, jr.item_emb = jnp.asarray(u), jnp.asarray(i)
+    if what == "recommend":
+        for raw in rec.inter.id2user[::7]:
+            for exclude in (True, False):
+                got = rec.recommend(int(raw), k=10, exclude_rated=exclude)
+                want = jr.recommend(int(raw), k=10, exclude_rated=exclude)
+                assert [g[0] for g in got] == [w[0] for w in want]
+                np.testing.assert_allclose([g[1] for g in got], [w[1] for w in want],
+                                           rtol=1e-6, atol=1e-6)
+        return
     got = rec.dump_recommendations()
     want = jr.dump_recommendations(str(tmp_path / "jax.txt"))
     assert got.endswith("LightGCN-top-10items.txt")

@@ -1,9 +1,10 @@
-"""The evaluation's fused ranking (`ops/kernels/score_topk.py`) on the CPU:
-its plain version against the blocked scoring and select it stands for and
-against the JAX package's `masked_topk`, the choice between the fused and
-the blocked path, and `ranking_metrics` on the CPU as it was before the
-fused path. The kernel itself runs in `tests/test_torch_kernels_gpu.py` on
-a card."""
+"""The fused ranking (`ops/kernels/score_topk.py`) on the CPU: its plain
+version against the blocked scoring and select it stands for and against
+the JAX package's `masked_topk`, the choice between the fused and the
+blocked path, `ranking_metrics` on the CPU as it was before the fused path,
+and every caller of `eval.metrics.top_items` reaching the fused path with
+its own users and k. The kernel itself runs in
+`tests/test_torch_kernels_gpu.py` on a card."""
 
 import types
 
@@ -147,13 +148,10 @@ def _blocked_metrics(u, i, dev, top_ns, block):
     """`ranking_metrics` as it read before the fused path: each block scored
     with `exact_scores` and ranked with `masked_topk`."""
     users = dev.eval_data.test_users.long()
-
-    def top_ids(s, e):
-        rows = users[s:e]
-        return tt.masked_topk(tt.exact_scores(u.index_select(0, rows), i),
-                              dev.rated_pad.index_select(0, rows), max(top_ns))[1]
-
-    return tm._metrics(top_ids, dev.eval_data, top_ns, block, u.device, "ranking_metrics")
+    ids = [tt.masked_topk(tt.exact_scores(u.index_select(0, rows), i),
+                          dev.rated_pad.index_select(0, rows), max(top_ns))[1]
+           for rows in users.split(block)]
+    return tm.metrics_from_topk(torch.cat(ids), dev.eval_data, top_ns, block)
 
 
 @pytest.mark.parametrize("block", [64, 32])
@@ -208,3 +206,90 @@ def test_cpu_tensors_take_the_plain_version():
     assert fs.LAUNCHES == before  # no kernel on the CPU
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.int64
+
+
+@pytest.fixture(scope="module")
+def rec(tmp_path_factory):
+    """A LightGCN facade on the CPU whose tables are multiples of 1/16, so
+    that a score is exact whatever rows a product holds."""
+    from hypergraph_diffusion_for_recommendation_tpu_torch.core import make_config
+    from hypergraph_diffusion_for_recommendation_tpu_torch.data import synthetic_dataset
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Recommender
+
+    r = Recommender(make_config("LightGCN", embedding_size=16, eval_user_batch=32,
+                                item_ranking=(5, 10),
+                                output_dir=str(tmp_path_factory.mktemp("out"))), device="cpu")
+    r.build(synthetic_dataset(n_users=80, n_items=120, mean_degree=10.0, seed=3))
+    r.init_weights(0)
+    rng = np.random.default_rng(23)
+    r.user_emb = torch.as_tensor(_dyadic(rng, (r.inter.n_users, 16)))
+    r.item_emb = torch.as_tensor(_dyadic(rng, (r.inter.n_items, 16)))
+    return r
+
+
+def _ranking_metrics(rec, path):
+    cf = rec.cf_dev
+    out = tm.ranking_metrics(rec.user_emb, rec.item_emb, cf.rated_pad, cf.eval_data, (5, 10),
+                             block=32)
+    return {k: v.view(torch.int32).tolist() for k, v in out.items()}, cf.eval_data.test_users, 10
+
+
+def _evaluate(rec, path):
+    from hypergraph_diffusion_for_recommendation_tpu_torch.train import Trainer
+
+    tr = Trainer(rec.bundle, seed=0, extras=rec.extras)
+    tr.encode = lambda: (rec.user_emb, rec.item_emb)
+    return tr.evaluate(), rec.cf_dev.eval_data.test_users, 10
+
+
+def _retriever(exclude_rated):
+    def run(rec, path):
+        from hypergraph_diffusion_for_recommendation_tpu_torch.eval.serving import Retriever
+
+        r = Retriever.load(rec.export_embeddings(str(path / "emb.npz")), block=16, device="cpu")
+        raw = [int(x) for x in rec.inter.id2user[::3]]  # several blocks, a ragged tail
+        ids, scores = r.topk(raw, k=7, exclude_rated=exclude_rated)
+        return ((ids.tolist(), scores.view(np.int32).tolist()),
+                [rec.inter.user[u] for u in raw], 7)
+
+    return run
+
+
+def _recommend(rec, path):
+    raw = int(rec.inter.id2user[5])
+    return rec.recommend(raw, k=9), [rec.inter.user[raw]], 9
+
+
+def _dump(rec, path):
+    ed = rec.cf_dev.eval_data
+    out = rec.dump_recommendations(str(path / f"dump{len(list(path.iterdir()))}.txt"), k=6)
+    return open(out, "rb").read(), ed.test_users[: ed.n_test_users], 6
+
+
+@pytest.mark.parametrize("caller,masked", [
+    (_ranking_metrics, True), (_evaluate, True), (_retriever(True), True),
+    (_retriever(False), False), (_recommend, True), (_dump, True),
+], ids=["ranking_metrics", "Trainer.evaluate", "Retriever.topk", "Retriever.topk-unmasked",
+        "recommend", "dump_recommendations"])
+def test_every_caller_ranks_through_the_fused_path_where_it_covers(rec, tmp_path, monkeypatch,
+                                                                  caller, masked):
+    # unpatched on the CPU: the blocked path. Patched as on a covered card:
+    # one `score_topk` call with the caller's own users and k, nothing of the
+    # blocked path, and (on sums exact in any order) the same answer
+    want, users, k = caller(rec, tmp_path)
+    calls = []
+
+    def plain(user_emb, users, item_emb, rated, k):
+        calls.append((users.tolist(), k, rated is not None))
+        return fs.score_topk_reference(user_emb, users, item_emb, rated, k)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a covered ranking took the blocked path")
+
+    monkeypatch.setattr(fs, "covers", lambda *args: True)
+    monkeypatch.setattr(fs, "score_topk", plain)
+    for name in ("exact_scores", "masked_topk", "topk_ids"):
+        monkeypatch.setattr(tm, name, refuse)
+    got, _, _ = caller(rec, tmp_path)
+    assert calls == [([int(u) for u in users], k, masked)]
+    assert got == want

@@ -117,9 +117,14 @@ def test_an_evaluation_records_score_topk_and_metrics_in_each_block(recs, tmp_pa
     score, topk, metrics = (_named(ranges, n) for n in (spans.EVAL_SCORE, spans.EVAL_TOPK,
                                                          spans.EVAL_METRICS))
     assert len(score) == len(topk) == len(metrics) == n_blocks
+    # `top_items` ranks every block (its scoring, then its top-k), then the
+    # metrics are summed a block at a time
     last = encode[2]
-    for s, t, m in zip(score, topk, metrics):
-        assert last <= s[1] and s[2] <= t[1] and t[2] <= m[1]
+    for s, t in zip(score, topk):
+        assert last <= s[1] and s[2] <= t[1]
+        last = t[2]
+    for m in metrics:
+        assert last <= m[1]
         last = m[2]
     assert last <= to_host[1]
 
